@@ -1,58 +1,54 @@
-"""ptudes-tpu: TPU-native point etudes lab.
+"""ptudes-tpu: point etudes lab in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-bexcite/ptudes-lab (lidar-inertial odometry, SLAM, evaluation and
-visualization around Ouster lidar data), re-designed TPU-first:
+A JAX/XLA/Pallas framework with the capabilities of bexcite/ptudes-lab
+(lidar-inertial odometry, SLAM, evaluation and visualization around
+Ouster lidar data), re-designed for an accelerator:
 
 * the per-scan pipeline (deskew -> voxelize -> NN-ICP -> map update -> EKF)
   is one jit-compiled ``scan_step`` under ``lax.scan``;
-* the local map is a fixed-capacity, static-shape voxel hash table in HBM;
+* the local map is a fixed-capacity, static-shape voxel hash table in
+  device memory;
 * parallelism comes from ``vmap`` over sequences and ``shard_map`` over a
-  TPU mesh (the reference is single-threaded CPU python — SURVEY.md section 2c).
+  device mesh (the reference is single-threaded CPU python — SURVEY.md
+  section 2c).
 """
+
+import os as _os
 
 import jax as _jax
 
 # Geometry / state estimation is precision-critical: JAX's default matmul
-# precision lowers f32 matmuls to bf16 passes (~8 mantissa bits), which at
-# lidar ranges (100 m) means tens-of-cm coordinate error inside pose chains,
-# ICP Jacobian products and EKF covariance updates. All matmuls in this
-# framework are small (3x3 pose chains, Nx6 GN reductions, 18x18 EKF), so
-# full f32 precision costs nothing while being required for correctness.
+# precision may lower f32 matmuls to reduced-precision passes (bf16 or
+# TF32, ~8-10 mantissa bits), which at lidar ranges (100 m) means
+# tens-of-cm coordinate error inside pose chains, ICP Jacobian products
+# and EKF covariance updates. All matmuls in this framework are small
+# (3x3 pose chains, Nx6 GN reductions, 18x18 EKF), so full f32 precision
+# costs nothing while being required for correctness. (It does not
+# reach inside Pallas kernels: ops.pallas_* ask for IEEE f32 themselves.)
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent compilation cache: the fused scan_step compiles in ~25-60 s
-# per distinct shape config; caching makes every rerun (CLI invocations,
-# bench reruns, notebook restarts) start in seconds. Opt out or relocate
-# with PTUDES_COMPILE_CACHE=off / =<dir>.
-import os as _os
 
-def _default_cache_dir() -> str:
-    # per-user location: a fixed world-writable /tmp path could be
-    # pre-created/owned by another user on a shared host (DoS or tampering
-    # with cached compiled executables)
-    base = _os.environ.get("XDG_CACHE_HOME",
-                           _os.path.join(_os.path.expanduser("~"), ".cache"))
-    if not _os.path.isabs(base):  # e.g. HOME unset -> "~" unexpanded
-        base = f"/tmp/ptudes_cache_uid{_os.getuid()}"
-    return _os.path.join(base, "ptudes_jax")
+def compile_cache_dir() -> str | None:
+    """Where this package puts JAX's persistent compilation cache.
 
-
-def _cache_default_on() -> bool:
-    # XLA:CPU persists AOT-compiled machine code whose feature-set check
-    # is unreliable (the loader reports compile-machine features like
-    # +prefer-no-scatter as missing even on the SAME host and warns of
-    # possible SIGILL; crashes observed under the 8-device test mesh).
-    # TPU executables have no such issue and are where caching pays
-    # (25-60 s compiles), so: cache ON unless the process is pinned to
-    # the CPU platform; opt in explicitly with PTUDES_COMPILE_CACHE=<dir>.
-    return "cpu" not in _os.environ.get("JAX_PLATFORMS", "").lower()
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is JAX's own setting and is
+    left alone (None). Otherwise the cache lives at one fixed path inside
+    the checkout (``.jax_cache``, git-ignored): the path is part of the
+    cache key, so it must not move between runs. None as well when the
+    process is pinned to the CPU: XLA:CPU persists AOT machine code whose
+    feature-set check is unreliable (the loader reports compile-machine
+    features as missing even on the same host and warns of possible
+    SIGILL), and CPU compiles are cheap."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    if "cpu" in _os.environ.get("JAX_PLATFORMS", "").lower():
+        return None
+    return _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), ".jax_cache")
 
 
-_cache = _os.environ.get("PTUDES_COMPILE_CACHE")
-if _cache is None:
-    _cache = _default_cache_dir() if _cache_default_on() else "off"
-if _cache.lower() not in ("off", "0", ""):
+_cache = compile_cache_dir()
+if _cache is not None:
     _jax.config.update("jax_compilation_cache_dir", _cache)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 

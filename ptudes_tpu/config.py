@@ -30,11 +30,12 @@ class KissConfig:
     initial_threshold: float = 2.0
     min_motion_th: float = 0.1
     # registration: kiss-icp runs <=500 GN iterations with 1e-4 early stop;
-    # on TPU we run a fixed count with a convergence mask (SURVEY.md section 7)
+    # here a capped loop with a convergence mask (SURVEY.md section 7)
     max_iterations: int = 50
     convergence_criterion: float = 1e-4
     # registration loss: "plane" (point-to-plane with per-voxel normal fits,
-    # our TPU-first improvement — stable on flat, ring-sampled ground) or
+    # an improvement over the reference — stable on flat, ring-sampled
+    # ground) or
     # "point" (kiss-icp parity point-to-point)
     loss: str = "plane"
     plane_min_quality: float = 0.2
@@ -43,8 +44,8 @@ class KissConfig:
     plane_fit_radius: float | None = None
     approx_nn: bool = True
     # NN candidate strategy: "cached" gathers the top-``nn_voxels`` candidate
-    # voxels (with plane fits) ONCE per scan and iterates densely — the
-    # TPU-native shape (one gather + K VPU iterations); "every" re-queries
+    # voxels (with plane fits) ONCE per scan and iterates densely (one
+    # gather + K dense iterations); "every" re-queries
     # the hash map per iteration (kiss-icp behavior, gather-bound)
     nn_mode: str = "cached"
     nn_voxels: int = 4
@@ -52,7 +53,7 @@ class KissConfig:
     # this fraction of a voxel from the gather pose. 0 disables the
     # refresh entirely (no cond in the loop): with EKF-predicted guesses
     # the per-registration drift is millimeters, far inside the gathered
-    # 7-neighborhood's +-1 voxel coverage (bench: same ATE, +5% speed)
+    # 7-neighborhood's +-1 voxel coverage
     nn_refresh_drift: float = 0.5
     # motion-prior regularization toward the initial guess (0 = kiss parity);
     # bounds sampling-noise random walk of the GN on self-similar geometry
@@ -61,31 +62,18 @@ class KissConfig:
     # NN search neighborhood: 27 (full cube, kiss parity), 7 (center +
     # faces; ~4x fewer gather rows, negligible quality impact for ICP),
     # or 4 (octant-directed: center + the 3 face neighbors on the
-    # query's sub-voxel side — the meta gather is row-serialized, so
-    # 4 rows/point is ~43% cheaper than 7 at near-identical recall)
+    # query's sub-voxel side: 4 meta rows/point instead of 7 at
+    # near-identical recall)
     nn_neighborhood: int = 27
-    # GN inner-loop backend for cached mode: "auto" picks the fused Pallas
-    # kernel on TPU when shapes align, "jnp"/"pallas" force a choice;
-    # "fused" runs the ENTIRE iteration loop inside one Pallas kernel
-    # (ops.pallas_icp: no XLA while boundary, scalar solve/update on the
-    # TPU scalar unit) — requires nn_refresh_drift=0 and no point sharding
+    # GN loop form for cached mode with frozen candidates: "auto" lets
+    # ops.backend choose from the platform, "xla" forces the while_loop
+    # around gn_from_candidates, "triton" the one-launch kernel
+    # (ops.pallas_icp)
     gn_backend: str = "auto"
-    # GN steps per while_loop body (cached mode, refresh disabled):
-    # result-identical for any factor (steps are convergence-masked).
-    # Measured on TPU v5e at bench shapes: the while boundary on the
-    # 4-scalar carry is CHEAPER than the masked extra GN kernels, so 1
-    # (plain while) wins — the knob stays for other shape regimes
+    # GN steps per while_loop body of the XLA loop: result-identical for
+    # any factor (steps are convergence-masked); max_iterations gives a
+    # fixed-count loop with no data-dependent predicate
     gn_unroll: int = 1
-    # fused candidate select+prep kernels (ops.pallas_gather) on the
-    # frozen-candidate pallas/fused path; False = the XLA
-    # gather_candidates + prep chain (same candidates either way).
-    # MEASURED (r5 A/B, tools/exp_r5_gather.py, TPU v5e, 4 interleaved
-    # reps): fused 443.3 vs XLA 450.1 scans/s best-of — the two kernel
-    # launches do NOT beat XLA's existing fusion of the select chain at
-    # bench shapes; the added [N,56]/[N,V]/[N,32] transposes cost more
-    # than the removed op soup. Default False; knob kept for other
-    # shape regimes and further tuning.
-    fused_gather: bool = False
 
     @property
     def resolved_voxel_size(self) -> float:
@@ -131,18 +119,16 @@ class EkfConfig:
     # improvement over the reference: Joseph-form covariance update +
     # symmetrization for f32 stability (reference runs f64 numpy)
     joseph_form: bool = True
-    # predict-block structure for esekf.process_imu_batch: "assoc" runs
-    # the K per-scan covariance updates as a log-depth associative scan of
-    # transition-matrix products + ONE compound P update (measured 917 ->
-    # ~160 us/scan at K=16 on TPU v5e; f32-reassociation differences only,
-    # ~1e-3 absolute on cov entries of magnitude ~100); "unroll" is the
-    # step-by-step chain, bit-matching K sequential process_imu calls.
-    # log=True always uses the unrolled chain (it needs per-step history).
-    predict_batch: str = "assoc"
-    # pose-update form: "xla" (the reference-shaped op chain) or
-    # "pallas" — the whole update as one kernel launch
-    # (ops.pallas_ekf.update_pose_pallas); same math to f32 roundoff
-    update_form: str = "xla"
+    # predict-block structure for esekf.process_imu_batch: "auto" lets
+    # ops.backend choose from the platform; "assoc" runs the K per-scan
+    # covariance updates as a log-depth associative scan of
+    # transition-matrix products + ONE compound P update (f32
+    # reassociation differences only, ~1e-3 absolute on cov entries of
+    # magnitude ~100); "unroll" is the step-by-step chain, bit-matching K
+    # sequential process_imu calls; "triton" is the one-launch kernel
+    # (ops.pallas_ekf.predict_block). log=True always uses the unrolled
+    # chain for the per-step history.
+    predict_batch: str = "auto"
 
 
 @dataclass(frozen=True)
@@ -167,8 +153,8 @@ class PipelineConfig:
     # scans (exact map semantics). The steady tail inserts at most
     # cap.max_new_per_scan new points per scan — decimated EVENLY over
     # the new set (ops.hashmap.insert_deduped), the rest retrying next
-    # scan — which skips the overflow loop's ~0.45 ms/scan carry boundary
-    # at map-content parity (the earlier first-N truncation starved sweep
+    # scan — which skips the overflow loop's carry boundary at
+    # map-content parity (the earlier first-N truncation starved sweep
     # tails and cost ATE 0.0205 -> 0.0251; even decimation measures at
     # full-overflow parity on the bench scene)
     bootstrap_scans: int = 1
@@ -179,9 +165,8 @@ class PipelineConfig:
     # may lag the frontier on high-turnover scenes)
     steady_insert_mode: bool | str = "cond"
     # lax.scan unroll factor for the steady tail: the scan's while-loop
-    # boundary copies carry components XLA cannot alias in place (~0.2-0.3
-    # ms/scan of copy ops at bench shapes, dominated by the map table);
-    # unrolling pays that boundary once per ``scan_unroll`` scans. Results
+    # boundary copies carry components XLA cannot alias in place
+    # (dominated by the map table); unrolling pays that boundary once per ``scan_unroll`` scans. Results
     # are identical for any factor; compile time grows with the factor.
     scan_unroll: int = 1
     # localization-only mode (beyond the reference): register every scan

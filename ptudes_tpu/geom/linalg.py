@@ -1,4 +1,4 @@
-"""Tiny fixed-size linear algebra, unrolled for TPU.
+"""Tiny fixed-size linear algebra, unrolled.
 
 ``jnp.linalg.solve`` / ``inv`` on a single small matrix lower to LU
 custom calls with real per-call latency — inside the ICP Gauss-Newton

@@ -1,6 +1,6 @@
 """SO(3) primitives in JAX.
 
-TPU-native replacement for the rotation helpers the reference pulls from
+JAX replacement for the rotation helpers the reference pulls from
 scipy ``Rotation`` and ``ouster.sdk.pose_util`` (``exp_rot_vec`` /
 ``log_rot_mat``; see reference ``src/ptudes/ins/es_ekf.py:11`` and
 ``src/ptudes/utils.py:28-36`` for ``vee``).

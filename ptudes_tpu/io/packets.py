@@ -1,6 +1,6 @@
 """Ouster UDP packet parsing — numpy-vectorized host-side decoders.
 
-TPU-native replacement for ouster-sdk's C++ ``PacketFormat``/``ScanBatcher``
+Host-side replacement for ouster-sdk's C++ ``PacketFormat``/``ScanBatcher``
 (reference call sites ``src/ptudes/data.py:44-62``): instead of per-packet
 C++ calls through pybind11, whole packet *batches* are decoded with
 vectorized numpy views and assembled into dense [H, W] field arrays, which

@@ -1,12 +1,13 @@
 """Data sources: pcap / ROS bag -> dense scan + IMU arrays.
 
-TPU-native re-design of the reference's streaming layer
+Re-design of the reference's streaming layer
 (``OusterRawBagSource``/``IMUBagSource`` in ``src/ptudes/bag.py`` and
 ``OusterLidarData.withScanIdx`` in ``src/ptudes/data.py:31-77``): instead
 of yielding one packet/scan at a time through pybind11 objects, a whole
 recording is decoded into dense numpy arrays once (vectorized) and the
-device pipeline consumes contiguous slices — the host->HBM feed pattern
-that keeps the TPU busy (SURVEY.md section 7, 'Hard parts').
+device pipeline consumes contiguous slices — the host->device feed
+pattern that keeps the accelerator busy (SURVEY.md section 7, 'Hard
+parts').
 
 Scan assembly (the C++ ``ScanBatcher`` equivalent) is a scatter by
 (frame index, measurement id); partial last frames are kept, matching the

@@ -1,6 +1,6 @@
 """Error-state EKF for IMU odometry, pure-functional in JAX.
 
-TPU-native re-design of the reference ``ESEKF`` (``src/ptudes/ins/es_ekf.py``):
+JAX re-design of the reference ``ESEKF`` (``src/ptudes/ins/es_ekf.py``):
 the 18-dim error state  [dpos, dvel, datt, dbias_gyr, dbias_acc, dgrav]
 with block indices POS/VEL/PHI/BG/BA/G = 0,3,6,9,12,15
 (``src/ptudes/ins/es_ekf.py:65-71``), IMU mechanization predict, and 6-DoF
@@ -11,7 +11,7 @@ Differences from the reference (all deliberate improvements):
     vmap (multi-sequence replay);
   * f32 with optional Joseph-form covariance update + symmetrization
     instead of the reference's f64 + (I-KJ)P, which keeps the filter
-    stable in single precision on TPU;
+    stable in single precision;
   * the error state is folded immediately at update time: the reference's
     ``_nav_err`` is provably always zero at ``processPose`` entry (it is
     reset at the end of every update and never touched in predict), so the
@@ -33,6 +33,7 @@ from .. import GRAV
 from ..config import EkfConfig
 from ..geom import se3, so3
 from ..geom.linalg import solve_spd6
+from ..ops import backend
 
 STATE_RANK = 18
 POS, VEL, PHI, BG, BA, G = 0, 3, 6, 9, 12, 15
@@ -188,21 +189,9 @@ def process_pose(
     meas_cov: jax.Array | None = None,
 ) -> EkfState:
     """EKF update from a 6-DoF pose measurement (reference ``processPose``,
-    ``src/ptudes/ins/es_ekf.py:259-327``).
-
-    ``cfg.update_form == "pallas"`` runs the whole update (residual, 6x6
-    SPD solve, gain, Joseph update, injection, attitude projection) as
-    ONE kernel launch (``ops.pallas_ekf.update_pose_pallas``) instead of
-    the ~100-op XLA chain; parity is f32 roundoff (pinned by test).
-    """
+    ``src/ptudes/ins/es_ekf.py:259-327``)."""
     if meas_cov is None:
         meas_cov = default_meas_cov(cfg)
-
-    if getattr(cfg, "update_form", "xla") == "pallas":
-        from ..ops.pallas_ekf import update_pose_pallas
-        return update_pose_pallas(
-            s, pose_meas, meas_cov, joseph=cfg.joseph_form,
-            interpret=(jax.default_backend() != "tpu"))
 
     r_k = so3.quat_to_mat(s.quat)
 
@@ -313,10 +302,9 @@ def _process_imu_batch_assoc(
     """Batched-covariance predict block.
 
     Same math as K sequential :func:`process_imu` calls, restructured for
-    TPU: the nav mechanization (a genuinely serial, tiny scalar chain)
-    stays an unrolled scan, but the K serialized 18x18 covariance updates
-    ``P <- Fx P Fx^T + W`` — measured at ~61 us/step of small-op overhead,
-    ~0.9 ms/scan at K=16, a quarter of the whole fused scan step — become
+    a short op chain: the nav mechanization (a genuinely serial, tiny
+    scalar chain) stays an unrolled scan, but the K serialized 18x18
+    covariance updates ``P <- Fx P Fx^T + W`` become
 
         P' = G_1 P G_1^T + sum_k G_{k+1} W_k G_{k+1}^T,
         G_k = F_K @ ... @ F_k  (suffix products, log-depth assoc. scan)
@@ -408,50 +396,44 @@ def process_imu_batch(
     """Run a padded block of IMU samples through predict under lax.scan
     (the per-scan inner loop of the fused pipeline, SURVEY.md section 7.6).
 
-    ``cfg.predict_batch`` selects the structure: "assoc" (default) runs
-    the covariance chain as a log-depth associative scan (see
-    :func:`_process_imu_batch_assoc` — ~6x cheaper on TPU, f32
+    ``cfg.predict_batch`` selects the structure ("auto": ``ops.backend``
+    picks from the platform): "assoc" runs the covariance chain as a
+    log-depth associative scan (see :func:`_process_imu_batch_assoc`, f32
     reassociation differences only), "unroll" is the step-by-step chain
-    bit-matching K sequential :func:`process_imu` calls.
+    bit-matching K sequential :func:`process_imu` calls, "triton" the
+    one-launch kernel (``ops.pallas_ekf.predict_block``).
 
     With ``log=True`` returns ``(state, FilterLog)`` with one entry per
     (padded) IMU slot — the fused pipeline's IMU-rate history (the
     reference's ``_logging=True`` recordings for the flagship ouster mode,
     ``src/ptudes/ins/es_ekf.py:171-179``). Logging is side-effect-free,
     exactly like the reference (``es_ekf.py:171-179``): the CARRIED state
-    is always the one ``log=False`` would return — under "assoc"/"pallas"
+    is always the one ``log=False`` would return — under "assoc"/"triton"
     the log path runs the unrolled chain only to emit the per-step
     history and carries the assoc/kernel-form state forward, so
     observability never perturbs the trajectory (the per-step
     ``cov_diag`` entries are the unrolled chain's, which differ from the
-    carried covariance by f32 reassociation only).
-
-    ``predict_batch="pallas"`` runs the whole block as ONE TPU kernel
-    (``ops.pallas_ekf``): nav chain on the scalar unit, covariance as
-    in-kernel 18x18 matmuls — removes the ~25-ops-per-step dispatch/
-    bubble cost entirely (interpret-mode on non-TPU backends)."""
-    if cfg.predict_batch not in ("assoc", "unroll", "pallas"):
+    carried covariance by f32 reassociation only)."""
+    form = backend.resolve("ekf_predict", cfg.predict_batch)
+    if form not in ("assoc", "unroll", "triton"):
         raise ValueError(
-            f"EkfConfig.predict_batch must be 'assoc', 'unroll' or "
-            f"'pallas', got {cfg.predict_batch!r}")
+            f"EkfConfig.predict_batch must be 'auto', 'assoc', 'unroll' "
+            f"or 'triton', got {cfg.predict_batch!r}")
 
     def _twist(st):
-        # log(T_in^-1 @ T_out) — the EKF deskew twist (XLA fallback;
-        # the pallas kernel computes it in its epilogue)
-        from ..geom import se3
+        # log(T_in^-1 @ T_out) — the EKF deskew twist (the kernel
+        # computes it in its epilogue)
         return se3.log_pose(se3.inv(pose_mat(s)) @ pose_mat(st))
 
     def fast_form():
-        if cfg.predict_batch == "pallas":
-            from ..ops.pallas_ekf import predict_block_pallas
-            return predict_block_pallas(
-                s, imus, valid, cfg=cfg,
-                interpret=(jax.default_backend() != "tpu"),
-                want_twist=want_twist)
+        if form == "triton":
+            from ..ops.pallas_ekf import predict_block
+            return predict_block(s, imus, valid, cfg=cfg,
+                                 want_twist=want_twist)
         st = _process_imu_batch_assoc(s, imus, valid, cfg=cfg)
         return (st, _twist(st)) if want_twist else st
 
-    use_fast = cfg.predict_batch in ("assoc", "pallas")
+    use_fast = form in ("assoc", "triton")
     if not log and use_fast:
         return fast_form()
     assert not (want_twist and log), \

@@ -1,6 +1,6 @@
 """KISS-ICP-style lidar odometry as a pure-functional JAX model.
 
-TPU-native re-design of the reference's ``KissICPWrapper`` + kiss-icp core
+JAX re-design of the reference's ``KissICPWrapper`` + kiss-icp core
 (``src/ptudes/kiss.py:18-166``): the full per-scan pipeline
 
     deskew -> range clip -> double voxelize -> adaptive sigma -> robust ICP
@@ -140,9 +140,9 @@ def register_scan(
     to the map update's INPUTS (empty insert mask, infinite eviction
     radius) rather than by selecting between old/new states afterwards —
     a ``jnp.where`` over the carried map would stream the full multi-
-    hundred-MB points table through a select every scan (measured 0.45
-    ms/scan for the skip-scans-without-IMU logic the reference runs as a
-    Python ``continue``, ``src/ptudes/cli/ekf_bench.py:512-518``).
+    hundred-MB points table through a select every scan (for the
+    skip-scans-without-IMU logic the reference runs as a Python
+    ``continue``, ``src/ptudes/cli/ekf_bench.py:512-518``).
 
     ``axis_name``: when set (inside shard_map over a mesh axis), the ICP
     source is split into per-device shards AFTER the (replicated,
@@ -183,8 +183,7 @@ def register_scan(
     #    the range-image grid shape, the bulk of the sub-voxel duplicates
     #    is removed by scatter-free window compares on the grid FIRST, so
     #    the exact scatter-table dedup runs on the compacted survivors at
-    #    max_frame width instead of full scan width (TPU scatters
-    #    serialize per row — this is the voxelize hot spot). Final point
+    #    max_frame width instead of full scan width. Final point
     #    set is identical either way (window survivors are a superset of
     #    the exact first-per-voxel set). The second (source) dedup runs on
     #    the compacted frame in both paths — compact is order-preserving,
@@ -195,8 +194,8 @@ def register_scan(
         # the exact sort-dedup at the COMPACTED width (run starts = exact
         # first-in-voxel set; compact is stable so scan order and thus the
         # chosen representatives are unchanged). Doing the dedup before
-        # compacting instead costs a second full-width sort (~190 us at
-        # 128x1024 — measured via profile_trace). Survivors beyond
+        # compacting instead costs a second full-width sort. Survivors
+        # beyond
         # max_frame are dropped, as in the dedup-first path.
         pre = voxel.window_prededup_mask(pts, mask, vs * 0.5, grid_hw)
         pre_pts, pre_mask = voxel.compact(pts, pre, cap.max_frame)
@@ -263,7 +262,6 @@ def register_scan(
             axis_name=axis_name,
             slot_base=map_slot_base,
             logical_capacity=map_logical_capacity,
-            fused_gather=cfg.fused_gather,
         )
     else:
         res = icp.register_frame(
@@ -283,9 +281,8 @@ def register_scan(
     new_pose = res.pose
 
     # 7. model deviation -> adaptive threshold statistics. The fused
-    #    ICP kernel computes the deviation norms in its epilogue (it
-    #    holds guess_inv in SMEM already); other backends leave them to
-    #    this XLA chain.
+    #    ICP kernel computes the deviation norms in its epilogue; the XLA
+    #    loop leaves them to this chain.
     if getattr(res, "dev_t", None) is not None:
         dev_dt, dev_drot = res.dev_t, res.dev_r
     else:
@@ -325,11 +322,8 @@ def register_scan(
     else:
         # bootstrap (overflow=True) body: insert the whole frame as ONE
         # chunk instead of ceil(frame/max_new) fori trips — the chunk loop
-        # carries the full map state per trip and cost 22.7 ms on the
-        # first scan at bench shapes (~9% of a 50-scan run, measured via
-        # profile_trace); the one-shot claim+scatter at frame width costs
-        # ~1.5 ms. "cond" and False are the steady-body modes (see
-        # hashmap.insert_deduped).
+        # carries the full map state per trip. "cond" and False are the
+        # steady-body modes (see hashmap.insert_deduped).
         local_map = hashmap.insert_deduped(
             state.local_map, frame_w, frame_mask & ok,
             voxel_size=vs, max_probes=cap.max_probes,

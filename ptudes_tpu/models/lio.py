@@ -1,7 +1,7 @@
 """Fused lidar-inertial odometry pipeline: one jit-compiled ``scan_step``
 under ``lax.scan``.
 
-This is the flagship model — the TPU-native re-design of the reference's
+This is the flagship model — the JAX re-design of the reference's
 ``ptudes ekf-bench ouster`` hot loop (``src/ptudes/cli/ekf_bench.py:493-563``,
 call stack SURVEY.md section 3.1):
 
@@ -72,8 +72,7 @@ class LioOut(NamedTuple):
 
 # --- packed per-scan output -------------------------------------------
 # Every LioOut field stacked by lax.scan costs one dynamic-update-slice
-# per scan step (~100 us/scan total for the ~15 fields, measured via
-# profile_trace); the scan drivers therefore carry ONE flat f32 row per
+# per scan step; the scan drivers therefore carry ONE flat f32 row per
 # scan and unpack it after the scan. Layout (all f32; ints/bools are
 # exact in f32 at their value ranges — counts < 2^24):
 _PK_KISS_POSE = 0      # 16
@@ -156,7 +155,7 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
     ``insert_overflow=False`` builds the STEADY-state body: the map insert
     handles at most ``cap.max_new_per_scan`` genuinely-new points and
     leaves the rest to retry next scan, skipping the overflow chunk loop
-    whose carry boundary alone costs ~0.3 ms/scan. run_sequence runs the
+    whose carry boundary carries the whole map. run_sequence runs the
     first (bootstrap) scan with the full-overflow body so the initial
     frame lands in the map in one step.
 
@@ -206,8 +205,8 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
                 state.ekf, batch.imu, batch.imu_valid, cfg=cfg.ekf,
                 log=True)
         elif need_twist:
-            # the predict form also emits the deskew twist (the pallas
-            # kernel computes it in its epilogue — no XLA pose algebra)
+            # the predict form also emits the deskew twist (the kernel
+            # computes it in its epilogue — no XLA pose algebra)
             ekf1, kernel_twist = esekf.process_imu_batch(
                 state.ekf, batch.imu, batch.imu_valid, cfg=cfg.ekf,
                 want_twist=True)
@@ -242,7 +241,7 @@ def make_scan_step(lut: XyzLut, cfg: PipelineConfig,
         # before KISS/update, ekf_bench.py:512-518): the gate rides INTO
         # register_scan (masked insert inputs) instead of a post-hoc
         # jnp.where over the state tree, which would stream the whole
-        # carried map through a select every scan (0.45 ms/scan measured)
+        # carried map through a select every scan
         has_imu = jnp.any(batch.imu_valid)
         h, w, _ = lut.direction.shape
         reg = kiss.register_scan(

@@ -11,7 +11,7 @@ held on device between calls — with host-side IMU windowing identical to
         if msg.is_imu:
             odo.push_imu(msg.lacc, msg.avel, msg.ts)
         else:
-            out = odo.push_scan(msg.range_m, msg.ts)   # ~5 ms on v5e
+            out = odo.push_scan(msg.range_m, msg.ts)
             publish(out.ekf_pose)
 
 Timestamps may be epoch-scale: the first pushed sample fixes the f64

@@ -1,6 +1,6 @@
 // ptudes-tpu native runtime: pcap splitting + Ouster packet decoding.
 //
-// The compute path of this framework is JAX/XLA/Pallas on TPU; this
+// The compute path of this framework is JAX/XLA/Pallas on the GPU; this
 // library is the host-side IO runtime — the role ouster-sdk's C++
 // PacketFormat/ScanBatcher play for the reference (SURVEY.md section 2b),
 // rebuilt for batch throughput: one pass over a memory-mapped capture

@@ -1,6 +1,6 @@
 """Constant-velocity motion compensation (deskew).
 
-TPU-native equivalent of kiss-icp's C++ ``compensator.deskew_scan``
+JAX equivalent of kiss-icp's C++ ``compensator.deskew_scan``
 (reference call sites ``src/ptudes/kiss.py:77,90``): every point is moved by
 the fractional relative motion
 
@@ -10,7 +10,7 @@ with per-column normalized timestamps tau in [0, 1)
 (``src/ptudes/kiss.py:34-35``) and kiss's mid-scan anchor (0.5).
 
 Instead of materializing a 4x4 pose per point, the Rodrigues form is expanded
-per point with shared twist axis and per-point scale — pure VPU element-wise
+per point with shared twist axis and per-point scale — pure element-wise
 math (two cross products + a few FMAs per point), no matmuls, no gathers.
 """
 from __future__ import annotations

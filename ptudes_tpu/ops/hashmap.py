@@ -1,6 +1,6 @@
-"""Fixed-capacity voxel hash map in HBM.
+"""Fixed-capacity voxel hash map in device memory.
 
-TPU-native replacement for kiss-icp's C++ ``VoxelHashMap`` (reference call
+JAX replacement for kiss-icp's C++ ``VoxelHashMap`` (reference call
 sites ``src/ptudes/kiss.py:108-114,129,161``): a persistent local map that
 supports
 
@@ -12,8 +12,9 @@ all with static shapes, pure-functional updates, and only scatter/gather
 primitives, so the whole structure lives in the ``lax.scan`` carry of the
 odometry loop (SURVEY.md section 7, stage 4).
 
-Layout — designed around TPU gather cost, which is dominated by the NUMBER
-of gathered rows, not bytes: all per-slot metadata lives in ONE packed row
+Layout — designed around gather cost, which grows with the NUMBER of
+gathered rows more than with bytes: all per-slot metadata lives in ONE
+packed row
 
     meta   [C, 8] int32 — [fingerprint, count, rep_x, rep_y, rep_z]
                           (rep = first point, f32 bitcast; fp 0 = free)
@@ -21,10 +22,9 @@ of gathered rows, not bytes: all per-slot metadata lives in ONE packed row
                           offsets (voxel_size/1024 resolution — 0.3 mm at
                           0.3 m voxels, far below lidar noise)
 
-Quantized point storage exists for the INSERT path, not memory: TPU
-scatters serialize per update and a 3-wide f32 window update costs ~79
-ns/point (measured 323+90 us/scan at bench shapes for the two point
-scatters), while a single-element i32 update is ~8 ns/point. Decoding
+Quantized point storage exists for the INSERT path, not memory: a
+single-element i32 scatter per point replaces a 3-wide f32 window
+update. Decoding
 needs the voxel corner, recovered anywhere as ``voxel_coords(rep)`` —
 the representative is a full-precision stored point INSIDE its voxel,
 so the floor at decode time reproduces the insert-time coordinate
@@ -147,24 +147,11 @@ def _fingerprint_and_slot(
 def gather_rows(table: jax.Array, s: jax.Array,
                 fill: int = 0) -> jax.Array:
     """Row gather ``table[s]`` with OOB fill — with the index tensor
-    reshaped to a (flat/2, 2) matrix first.
-
-    Measured (r5, tools/exp_r5_insert.py, TPU v5e, net of loop floor):
-    the SAME 32768-row gather from a [2^19, 8] table costs 414 us with
-    flat [32768] indices but 157 us as [16384, 2] and 183 us as
-    [8192, 4] — XLA's gather lowering runs ~2.6x faster per row when the
-    index tensor has a small minor dimension. Order-preserving reshape,
-    so the result (reshaped back) is bit-identical.
-
-    HONESTY NOTE: the 2.6x is the ISOLATED (serialized-microbenchmark)
-    cost; the full-pipeline A/B (tools/exp_r5_gatherreshape.py, 4
-    interleaved reps) measured NO throughput change — at the current
-    operating point the scan program overlaps gather latency with other
-    work and is bound by per-op scheduling bubbles, not by the gathers
-    themselves (docs/PERF.md round 5). Kept because it is free, strictly
-    no slower, and matters in gather-serial contexts (standalone
-    queries, the batched driver's flat-table mode).
-    Result shape: ``s.shape + (table.shape[-1],)``.
+    reshaped to a (flat/2, 2) matrix first (ROADMAP 3.6: an earlier
+    backend's gather lowering ran faster per row with a small minor index
+    dimension; whether it pays on the GPU is not measured).
+    Order-preserving reshape, so the result (reshaped back) is
+    bit-identical. Result shape: ``s.shape + (table.shape[-1],)``.
     """
     shp = s.shape
     flatn = 1
@@ -269,14 +256,13 @@ def insert(
 
     # NOTE: keep the 2D-coordinate scatter — reshaping the carried [C,P]
     # buffer to scatter at a linear row index defeats XLA's in-place
-    # aliasing of the lax.scan carry and copies the whole map every scan
-    # (measured 52.9 -> 32.6 scans/s on the bench).
+    # aliasing of the lax.scan carry and copies the whole map every scan.
     tgt_slot = jnp.where(accept, slot, cap)                  # OOB -> dropped
     points = m.points.at[tgt_slot, jnp.where(accept, write_pos, 0)].set(
         pack_points(pts, coords, voxel_size), mode="drop"
     )
-    # column-wise updates as flat 1D/row scatters (windowed scatters into
-    # [C, 8] columns are pathologically slow on TPU), then one row-stack
+    # column-wise updates as flat 1D/row scatters (no windowed scatters
+    # into [C, 8] columns), then one row-stack
     counts = counts.at[tgt_slot].add(accept.astype(jnp.int32), mode="drop")
     rep_tgt = jnp.where(accept & (write_pos == 0), slot, cap)
     pts_i32 = jax.lax.bitcast_convert_type(pts, jnp.int32)
@@ -332,8 +318,8 @@ def insert_deduped(
     ``evict_origin``/``evict_r2``: fold the post-insert distance eviction
     (:func:`remove_far` semantics — evict AFTER insert, around the new
     pose) into this insert's meta rebuild. remove_far as a separate op
-    re-streams the full meta table (read + write ~32 MB at 2^19 slots,
-    ~50 us/scan); fused here it is a cheap ``where`` on the column arrays
+    re-streams the full meta table (read + write ~32 MB at 2^19 slots);
+    fused here it is a cheap ``where`` on the column arrays
     already in flight. Freshly inserted scan points are range-clipped to
     max_range and can never be evicted by it, so fused order == separate
     order.
@@ -343,8 +329,7 @@ def insert_deduped(
     in disjoint slot ranges ``[b*logical_capacity, (b+1)*logical_capacity)``
     and every probe adds the point's ``slot_base``. All scatters stay
     UNBATCHED single ops over the flat table — ``vmap``ping this insert
-    instead lowers to batched scatters that serialize ~5x worse per element
-    on TPU (the round-2 replica collapse, docs/PERF.md).
+    instead lowers to batched scatters.
     """
     cap_total = m.meta.shape[0]
     cap = cap_total if logical_capacity is None else logical_capacity
@@ -479,11 +464,10 @@ def insert_deduped(
     # chunk 0 always runs; overflow chunks (bootstrap scans where most of
     # the frame is new) run inside ONE dynamic-trip fori_loop — zero
     # iterations in steady state. A per-chunk lax.cond chain costs one
-    # carry-copy boundary per cond even on the untaken branch (~50-140 us
-    # each measured); the single while pays that boundary once — but even
-    # a ZERO-trip dynamic loop costs ~0.45 ms/scan at bench shapes (the
-    # full map state rides in the while carry), so pipelines run ONLY the
-    # bootstrap scan with overflow=True (models/lio.run_sequence).
+    # carry-copy boundary per cond even on the untaken branch; the single
+    # while pays that boundary once — but even a ZERO-trip dynamic loop
+    # carries the full map state, so pipelines run ONLY the bootstrap
+    # scans with overflow=True (models/lio.run_sequence).
     # ``overflow=False`` has no loop at all: the new-point set DECIMATES
     # EVENLY (same Bresenham rule as voxel.compact) to the chunk budget
     # and the rest stays "new" and retries next scan. Even decimation
@@ -574,8 +558,7 @@ def insert_deduped_batched(
     final map CONTENT is identical: the octant rule is content-addressed
     and per-replica inputs are sub-voxel-unique). The point: every scatter
     stays a single unbatched op, where ``vmap``ping the insert lowers to
-    batched scatters that serialize ~5x worse per element on TPU — the
-    measured round-2 replica collapse (docs/PERF.md).
+    batched scatters.
     """
     b, n, _ = pts.shape
     base = (jnp.arange(b * n, dtype=jnp.int32) // n) * logical_capacity
@@ -610,9 +593,9 @@ def remove_far_batched(
 def _argmin_select(d2: jax.Array, pts3: jax.Array) -> tuple[jax.Array, jax.Array]:
     """(min d2, pts3 row at the first argmin) via one-hot reductions.
 
-    take_along_axis lowers to a row gather, and TPU gathers serialize per
-    row (~8 ns each — 67 us for an [8192]-row take); compare+reduce over
-    the candidate axis is pure VPU work at the same result."""
+    take_along_axis lowers to a row gather; compare+reduce over the
+    candidate axis is elementwise work at the same result (ROADMAP 3.6:
+    not re-measured on the GPU)."""
     dmin = jnp.min(d2, axis=-1)
     oneh = d2 == dmin[:, None]
     oneh = oneh & (jnp.cumsum(oneh.astype(jnp.int32), axis=-1) == 1)

@@ -1,6 +1,6 @@
 """Robust ICP (Gauss-Newton) against the voxel hash map.
 
-TPU-native equivalent of ``kiss_icp.registration.register_frame`` (reference
+JAX equivalent of ``kiss_icp.registration.register_frame`` (reference
 call site ``src/ptudes/kiss.py:108-114``): the hottest code of the whole
 reference pipeline (SURVEY.md section 3.1).
 
@@ -23,8 +23,8 @@ Two loss modes:
     point-to-point odometry wobble and smear the map on flat ground —
     a deliberate improvement over the reference (LOAM/FAST-LIO lineage).
 
-TPU mapping: the NN search is gather-bound (hash map probes); the GN build
-is one einsum over stacked row Jacobians on the MXU. A Tikhonov floor keeps
+Device mapping: the NN search is gather-bound (hash map probes); the GN
+build is one einsum over stacked row Jacobians. A Tikhonov floor keeps
 the 6x6 solve nonsingular, which also yields dx = 0 on an empty map — the
 first frame then returns the initial guess exactly like kiss does.
 """
@@ -38,7 +38,7 @@ import jax.numpy as jnp
 
 from ..geom import se3, so3
 from ..geom.linalg import solve_spd6
-from . import hashmap
+from . import backend, hashmap
 from .plane import smallest_eigvec_sym3, voxel_plane
 
 
@@ -62,7 +62,7 @@ class CandidateSet(NamedTuple):
     pose) are valid for every iteration. This turns the reference's
     per-iteration hash queries (the gather-bound hot loop,
     ``kiss_icp::registration`` re-searching NNs each step) into one gather
-    + K iterations of pure dense VPU math — the TPU-native shape of ICP.
+    + K iterations of pure dense elementwise math and reductions.
 
     The plane fit is PER POINT over the whole gathered candidate patch
     (cross-voxel), not per voxel: single-scan maps hold only 1-3 points
@@ -163,10 +163,9 @@ def gather_candidates(
     rep_d2 = jnp.sum((rep - pts_w[:, None, :]) ** 2, axis=-1)
     rep_d2 = jnp.where(found, rep_d2, jnp.inf)
 
-    # iterative top-V selection. NOTE: one-hot multiply-sums, NOT
-    # take_along_axis — TPU gathers serialize per row (~67 us per
-    # [M]-row gather measured), while a [M, J] compare+reduce is pure
-    # VPU work; this loop had 3 such gathers per V step
+    # iterative top-V selection by one-hot multiply-sums instead of
+    # take_along_axis row gathers (3 per V step); ROADMAP 3.6 asks
+    # whether that still pays on the GPU
     jidx = jnp.arange(neighborhood, dtype=jnp.int32)[None, :]
     sel_slot, sel_cnt, sel_ok, sel_rep = [], [], [], []
     d = rep_d2
@@ -227,7 +226,7 @@ def gn_from_candidates(
 ) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """One GN normal-equation build against a fixed candidate set.
 
-    Pure dense VPU/MXU math (no gathers). Returns (jtj [6,6], jtr [6],
+    Pure dense math (no gathers). Returns (jtj [6,6], jtr [6],
     n_corr, total_weight) — additive across point shards, so the sharded
     pipeline psums them directly (the one hot-loop collective).
     """
@@ -290,7 +289,6 @@ def drift_metric(t_gather: jax.Array, t_cur: jax.Array) -> jax.Array:
         "plane_min_quality", "prior_rot_weight", "prior_trans_weight",
         "neighborhood", "n_voxels", "plane_radius", "gn_backend",
         "refresh_drift", "gn_unroll", "axis_name", "logical_capacity",
-        "fused_gather",
     ),
 )
 def register_frame_cached(
@@ -318,65 +316,46 @@ def register_frame_cached(
     axis_name: str | None = None,
     slot_base: jax.Array | None = None,
     logical_capacity: int | None = None,
-    fused_gather: bool = True,
 ) -> IcpResult:
     """Gather-once robust GN ICP (see :class:`CandidateSet`).
-
-    ``fused_gather``: use the 2-kernel candidate select+prep
-    (``ops.pallas_gather``) on the frozen-candidate pallas/fused path
-    instead of the XLA gather_candidates + prep chain (A/B knob; both
-    paths produce the same candidates).
 
     Same objective as :func:`register_frame` but with the NN candidates
     (and plane fits) hoisted out of the iteration loop: per iteration only
     a dense [M, V*P] distance + argmin + GN normal-equation build remain —
     no hash probes, no gathers, no data-dependent memory traffic.
 
-    ``gn_backend``: "pallas" fuses the whole per-iteration dense pass into
-    one TPU kernel (ops.pallas_gn — ~50 XLA ops -> 1 launch), "fused"
-    moves the ENTIRE iteration loop into one kernel (ops.pallas_icp — the
-    while boundary and the scalar solve/update chain run on the TPU
-    scalar unit; requires frozen candidates and no ``axis_name``), "jnp"
-    uses the plain XLA path, "auto" picks pallas on TPU when the source
-    capacity is kernel-block aligned.
+    ``gn_backend``: "xla" runs the loop as a ``while_loop`` around
+    :func:`gn_from_candidates`; "triton" runs the whole loop in one
+    kernel (``ops.pallas_icp``; requires frozen candidates and no
+    ``axis_name``); "auto" lets ``ops.backend`` pick from the platform,
+    and takes the XLA loop wherever the kernel cannot run.
 
     ``axis_name``: when set (inside shard_map), ``source``/``source_mask``
     are this device's shard of the full source and the 6x6 GN system is
     ``psum``-reduced over the named mesh axis each iteration — the ONE
-    hot-loop collective of the point-sharded pipeline (~200 bytes/iter
-    over ICI). The initial guess and map must be replicated; the returned
-    pose, counts and iteration numbers are then identical on all shards.
+    hot-loop collective of the point-sharded pipeline (~200 bytes/iter).
+    The initial guess and map must be replicated; the returned pose,
+    counts and iteration numbers are then identical on all shards.
 
     ``gn_unroll``: GN steps per ``while_loop`` body (no-refresh path
     only). Each step is convergence-masked (dx = 0, counters frozen once
-    converged), so the result is IDENTICAL for any unroll factor — but the
-    while boundary (cond evaluation + carry round-trip, ~100 us measured
-    through the fused scan program) is paid once per ``gn_unroll`` steps
-    instead of once per step. The fused Pallas GN body itself is ~9 us, so
-    the boundary dominates at unroll=1; typical converged registrations
-    take 4-6 steps, making 4 a good factor (1-2 trips).
+    converged), so the result is IDENTICAL for any unroll factor; the
+    while boundary is paid once per ``gn_unroll`` steps instead of once
+    per step, and ``gn_unroll=max_iterations`` is a fixed-count loop with
+    no data-dependent predicate.
     """
     assert loss in ("point", "plane")
+    refresh = refresh_drift > 0.0
     if gn_backend == "auto":
-        from .pallas_gn import BLK
-        if jax.default_backend() == "tpu" and source.shape[0] % BLK == 0:
-            # whole-loop fused kernel when eligible: measured 294 vs 253
-            # scans/s on the full bench pipeline (2026-08-19, TPU v5
-            # lite) and 1007 vs 1583 us/registration standalone, at
-            # equal ATE; it cannot psum (point sharding) and requires
-            # frozen candidates
-            gn_backend = ("fused" if (axis_name is None
-                                      and refresh_drift == 0.0)
-                          else "pallas")
-        else:
-            gn_backend = "jnp"
-    if gn_backend == "fused":
-        assert axis_name is None, (
-            "fused backend cannot psum inside the kernel loop; use "
-            "gn_backend='pallas' under shard_map")
-        assert refresh_drift == 0.0, (
-            "fused backend requires frozen candidates "
-            "(nn_refresh_drift=0)")
+        gn_backend = backend.choose("gn_loop")
+        if axis_name is not None or refresh:
+            gn_backend = "xla"
+    if gn_backend not in ("xla", "triton"):
+        raise ValueError(f"unknown gn_backend {gn_backend!r}")
+    if gn_backend == "triton" and (axis_name is not None or refresh):
+        raise ValueError(
+            "the fused GN kernel needs frozen candidates "
+            "(nn_refresh_drift=0) and cannot psum under a point mesh")
     max_d2 = max_distance * max_distance
     guess = initial_guess.astype(jnp.float32)
     guess_inv = se3.inv(guess)
@@ -385,66 +364,27 @@ def register_frame_cached(
     # moving, freezes them (one gather total) once the solve is in the
     # basin. refresh_drift == 0 removes the refresh cond from the loop
     # entirely (the cheap branch still pays carry copies every iteration).
-    refresh = refresh_drift > 0.0
     refresh_th = refresh_drift * voxel_size
 
-    def fetch(t_at, fit_planes=(loss == "plane")):
+    def fetch(t_at):
         return gather_candidates(
             vmap_, se3.transform(t_at, source),
             voxel_size=voxel_size, max_probes=max_probes,
             neighborhood=neighborhood, n_voxels=n_voxels,
-            fit_planes=fit_planes, plane_radius=plane_radius,
+            fit_planes=(loss == "plane"), plane_radius=plane_radius,
             slot_base=slot_base, logical_capacity=logical_capacity,
         )
 
-    if not refresh and gn_backend in ("pallas", "fused"):
-        # candidates are loop-invariant without refresh: prep ONCE here
-        # and close over the result — keeping them in the while carry
-        # costs a multi-MB carry copy per iteration.
-        from .pallas_gn import gn_prepped_pallas, prep_with_plane_pallas
-        r = (1.5 * voxel_size if plane_radius is None else plane_radius)
-        if (fused_gather and slot_base is None
-                and neighborhood in (7, 27)):
-            # the gather mega-kernel: probe match, top-V select, unpack,
-            # lane-major prep AND the patch plane fit collapse into TWO
-            # kernel launches around the two row gathers — replaces the
-            # ~150-op XLA chain of gather_candidates + prep (docs/PERF.md
-            # round 5). The batched-replica driver (slot_base) and the
-            # octant neighborhood keep the XLA path below.
-            from .pallas_gather import gather_prep_fused
-            cand0 = None  # unused by the prepped GN paths below
-            prepped0 = gather_prep_fused(
-                vmap_, source, source_mask, guess,
-                voxel_size=voxel_size, max_probes=max_probes,
-                neighborhood=neighborhood, n_voxels=n_voxels,
-                plane_radius=r, loss=loss,
-                interpret=(jax.default_backend() != "tpu"))
-        else:
-            # the patch plane fit runs on the SAME lane-major tensors via
-            # the fused moments kernel (gather_candidates' XLA fit is
-            # skipped entirely)
-            cand0 = fetch(guess, fit_planes=False)
-            prepped0 = prep_with_plane_pallas(
-                cand0, source_mask, se3.transform(guess, source),
-                jnp.asarray(r, jnp.float32), loss=loss,
-                interpret=(jax.default_backend() != "tpu"))
-    else:
-        cand0 = fetch(guess)
+    cand0 = fetch(guess)
 
-    if gn_backend == "fused":
-        import os
-
-        from .pallas_icp import icp_loop_pallas
-        pose, n_corr, iters, dev_t, dev_r = icp_loop_pallas(
-            source, prepped0, guess, kernel, max_d2, convergence,
+    if gn_backend == "triton":
+        from .pallas_icp import icp_loop
+        pose, n_corr, iters, dev_t, dev_r = icp_loop(
+            source, source_mask, cand0, guess, kernel, max_d2, convergence,
             plane_min_quality=plane_min_quality,
             max_iterations=max_iterations,
             prior_rot_weight=prior_rot_weight,
-            prior_trans_weight=prior_trans_weight,
-            # escape hatch if Mosaic rejects the scalar while_loop:
-            # PTUDES_ICP_LOOP_MODE=fori_cond (bit-identical result)
-            loop_mode=os.environ.get("PTUDES_ICP_LOOP_MODE", "while"),
-            interpret=(jax.default_backend() != "tpu"))
+            prior_trans_weight=prior_trans_weight, loss=loss)
         return IcpResult(pose=pose, num_corr=n_corr, iterations=iters,
                          dev_t=dev_t, dev_r=dev_r)
 
@@ -454,30 +394,12 @@ def register_frame_cached(
         # per-step mask must enforce the cap to keep any unroll factor
         # result-identical to unroll=1
         converged = jnp.logical_or(converged, iters >= max_iterations)
-        if gn_backend == "pallas":
-            if refresh:
-                # NOTE: prep (lane-major transpose) stays inside the
-                # iteration when candidates can change — carrying the
-                # transposed tensors through the while carry was
-                # measurably SLOWER (85.5 -> 72.7 scans/s) than
-                # re-transposing [N, C] per iteration
-                from .pallas_gn import gn_from_candidates_pallas
-                jtj, jtr, corr_n, total_w = gn_from_candidates_pallas(
-                    t_cur, source, source_mask, cand, kernel, max_d2,
-                    loss=loss, plane_min_quality=plane_min_quality,
-                    interpret=(jax.default_backend() != "tpu"))
-            else:
-                jtj, jtr, corr_n, total_w = gn_prepped_pallas(
-                    t_cur, source, prepped0, kernel, max_d2,
-                    plane_min_quality=plane_min_quality,
-                    interpret=(jax.default_backend() != "tpu"))
-        else:
-            jtj, jtr, corr_n, total_w = gn_from_candidates(
-                t_cur, source, source_mask, cand, kernel, max_d2,
-                loss=loss, plane_min_quality=plane_min_quality)
+        jtj, jtr, corr_n, total_w = gn_from_candidates(
+            t_cur, source, source_mask, cand, kernel, max_d2,
+            loss=loss, plane_min_quality=plane_min_quality)
 
         if axis_name is not None:
-            # the one hot-loop collective: 6x6 system over ICI
+            # the one hot-loop collective: 6x6 system over the mesh
             jtj = jax.lax.psum(jtj, axis_name)
             jtr = jax.lax.psum(jtr, axis_name)
             corr_n = jax.lax.psum(corr_n, axis_name)

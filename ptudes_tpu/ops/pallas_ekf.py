@@ -1,28 +1,29 @@
-"""Pallas TPU kernel: the whole per-scan EKF predict block in ONE launch.
+"""Pallas kernel (Triton route): the per-scan EKF predict block in ONE
+launch.
 
 ``esekf.process_imu_batch`` runs K IMU mechanization + covariance steps
-per scan. The unrolled chain is ~25 tiny XLA ops per step (~300 for
-K=12) and the associative-scan form still ~60 ops; at the bench
-operating point each removed op pays back multiple microseconds of
-per-op scheduling bubble (measured: dropping K 16 -> 12 alone bought
-+25 scans/s). This kernel removes the op count entirely:
+per scan: about 60 small XLA ops in the associative-scan form and about
+300 unrolled. On the GPU each op is a launch far longer than its few
+thousand FMAs. :func:`predict_block` does the whole block in one
+program:
 
 * the nav chain (pos/vel/attitude mechanization — a genuinely serial,
-  tiny scalar recurrence) runs as SMEM scalars on the TPU scalar unit,
-  with the attitude in rotation-matrix form composed via the same
-  Rodrigues scalars as ``ops.pallas_icp``;
-* the covariance chain ``P <- F P F^T + W`` runs as in-kernel [18, 18]
-  matmuls (padded MXU tiles) — 2K tiny matmuls inside one kernel
-  instead of 2K separately dispatched XLA ops, bit-matching the
-  UNROLLED chain's structure (per-step symmetrization included).
+  tiny scalar recurrence) runs in scalars, with the attitude in
+  rotation-matrix form composed via the same Rodrigues scalars as
+  ``ops.pallas_icp``;
+* the covariance chain ``P <- F P F^T + W`` runs on the 18x18 covariance
+  padded to a 32x32 register tile, two IEEE-f32 products per step —
+  the UNROLLED chain's structure (per-step symmetrization included).
 
-Semantics: identical math to K sequential ``esekf.process_imu`` calls
-(reference ``src/ptudes/ins/es_ekf.py:191-257``); differences vs the
-unrolled XLA chain are f32 rounding only (matrix-form attitude
-composition + MXU accumulation order), far below the process-noise
-floor — pinned by a tolerance parity test against the unrolled chain.
+Semantics: identical math to the XLA forms (reference
+``src/ptudes/ins/es_ekf.py:191-257``); differences are f32 rounding only
+(matrix-form attitude composition, summation order), pinned by
+tolerance parity tests. (A one-launch pose update was tried too and did
+not beat XLA's form end to end: PERF.md, PR 1.)
 
-Select with ``EkfConfig.predict_batch = "pallas"``.
+Products use ``pl.dot(..., allow_tf32=False)``: the global
+``jax_default_matmul_precision`` does not reach inside a Triton kernel,
+and TF32 keeps ~3 decimal digits — far too few for a covariance chain.
 """
 from __future__ import annotations
 
@@ -31,76 +32,64 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
-_EPS = 1e-8
-
-# scal input SMEM layout (1, 64): state scalars
-_I_POS, _I_VEL, _I_R = 0, 3, 6           # pos[3] vel[3] R[9] (row-major)
-_I_BG, _I_BA, _I_G = 15, 18, 21          # biases + gravity
-_I_TS, _I_INIT = 24, 25                  # carried ts, initialized flag
-# imu input SMEM layout (K, 8): [lacc3 | avel3 | ts | valid]
-# scal output SMEM layout (1, 32): pos[3] vel[3] R[9] ts init twist[6]
-_O_POS, _O_VEL, _O_R, _O_TS, _O_INIT = 0, 3, 6, 15, 16
-_O_TWIST = 17   # log(T_in^-1 @ T_out) — the EKF deskew twist
+from .pallas_icp import _log_pose_scalars, _rodrigues_scalars
 
 STATE = 18
 POS, VEL, PHI, BG, BA = 0, 3, 6, 9, 12
+TILE = 32   # covariance tile: 18x18 padded to a power of two
+
+# predict scal input [32]: state scalars
+_I_POS, _I_VEL, _I_R = 0, 3, 6           # pos[3] vel[3] R[9] (row-major)
+_I_BG, _I_BA, _I_G = 15, 18, 21          # biases + gravity
+_I_TS, _I_INIT = 24, 25                  # carried ts, initialized flag
+# imu input [K, 8]: [lacc3 | avel3 | ts | valid]
+# predict scal output [32]: pos[3] vel[3] R[9] ts init twist[6]
+_O_POS, _O_VEL, _O_R, _O_TS, _O_INIT = 0, 3, 6, 15, 16
+_O_TWIST = 17   # log(T_in^-1 @ T_out) — the EKF deskew twist
+
+_PARAMS = pltr.CompilerParams(num_warps=4, num_stages=1)
 
 
-def _rodrigues_scalars(wx, wy, wz):
-    """exp(rotvec) as 9 row-major scalars (same series as
-    ops.pallas_icp / geom.so3.exp_rotvec)."""
-    t2 = wx * wx + wy * wy + wz * wz
-    theta = jnp.sqrt(t2)
-    small = theta < _EPS
-    safe_t2 = jnp.where(small, 1.0, t2)
-    a = jnp.where(small, 1.0 - t2 / 6.0, jnp.sin(theta) / jnp.sqrt(safe_t2))
-    b = jnp.where(small, 0.5 - t2 / 24.0, (1.0 - jnp.cos(theta)) / safe_t2)
-    xx, yy, zz = wx * wx, wy * wy, wz * wz
-    xy, xz, yz = wx * wy, wx * wz, wy * wz
-    return (
-        1.0 + b * (-yy - zz), -a * wz + b * xy, a * wy + b * xz,
-        a * wz + b * xy, 1.0 + b * (-xx - zz), -a * wx + b * yz,
-        -a * wy + b * xz, a * wx + b * yz, 1.0 + b * (-xx - yy),
-    )
+def _rot_scalars(wx, wy, wz):
+    return _rodrigues_scalars(wx, wy, wz)[0]
 
 
 def _matmul3_scalars(a, b):
-    return (
-        a[0] * b[0] + a[1] * b[3] + a[2] * b[6],
-        a[0] * b[1] + a[1] * b[4] + a[2] * b[7],
-        a[0] * b[2] + a[1] * b[5] + a[2] * b[8],
-        a[3] * b[0] + a[4] * b[3] + a[5] * b[6],
-        a[3] * b[1] + a[4] * b[4] + a[5] * b[7],
-        a[3] * b[2] + a[4] * b[5] + a[5] * b[8],
-        a[6] * b[0] + a[7] * b[3] + a[8] * b[6],
-        a[6] * b[1] + a[7] * b[4] + a[8] * b[7],
-        a[6] * b[2] + a[7] * b[5] + a[8] * b[8],
-    )
+    return tuple(
+        a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j]
+        for i in range(3) for j in range(3))
 
 
-def _make_kernel(k_steps: int, acc_bias_std: float, gyr_bias_std: float,
-                 acc_vrw: float, gyr_arw: float):
+def _iota2():
+    ir = jax.lax.broadcasted_iota(jnp.int32, (TILE, TILE), 0)
+    ic = jax.lax.broadcasted_iota(jnp.int32, (TILE, TILE), 1)
+    return ir, ic
+
+
+def _dot(a, b, trans_b=False):
+    return pl.dot(a, b, trans_b=trans_b, allow_tf32=False)
+
+
+def _make_predict_kernel(k_steps: int, acc_bias_std: float,
+                         gyr_bias_std: float, acc_vrw: float,
+                         gyr_arw: float):
     def kernel(scal_ref, imu_ref, cov_ref, out_ref, cov_out_ref):
-        pos = [scal_ref[0, _I_POS + i] for i in range(3)]
-        vel = [scal_ref[0, _I_VEL + i] for i in range(3)]
-        r = [scal_ref[0, _I_R + i] for i in range(9)]
-        bg = [scal_ref[0, _I_BG + i] for i in range(3)]
-        ba = [scal_ref[0, _I_BA + i] for i in range(3)]
-        grav = [scal_ref[0, _I_G + i] for i in range(3)]
-        ts = scal_ref[0, _I_TS]
-        init = scal_ref[0, _I_INIT]          # 0.0 / 1.0
-        r0 = list(r)                          # entry pose for the twist
-        p0 = list(pos)
+        pos = [scal_ref[_I_POS + i] for i in range(3)]
+        vel = [scal_ref[_I_VEL + i] for i in range(3)]
+        r = [scal_ref[_I_R + i] for i in range(9)]
+        bg = [scal_ref[_I_BG + i] for i in range(3)]
+        ba = [scal_ref[_I_BA + i] for i in range(3)]
+        grav = [scal_ref[_I_G + i] for i in range(3)]
+        ts = scal_ref[_I_TS]
+        init = scal_ref[_I_INIT]              # 0.0 / 1.0
+        r0, p0 = list(r), list(pos)           # entry pose for the twist
 
-        p = cov_ref[:]                        # [18, 18] f32 VMEM
-        ir = jax.lax.broadcasted_iota(jnp.int32, (STATE, STATE), 0)
-        ic = jax.lax.broadcasted_iota(jnp.int32, (STATE, STATE), 1)
-        eye = (ir == ic).astype(jnp.float32)
-
-        def put(mat, row, col, val):
-            return jnp.where((ir == row) & (ic == col), val, mat)
+        p = cov_ref[...]                      # [TILE, TILE]
+        ir, ic = _iota2()
+        eye = jnp.where(ir == ic, 1.0, 0.0)
+        in_blk = [(ir >= b) & (ir < b + 3) for b in (VEL, PHI, BG, BA)]
 
         for k in range(k_steps):
             lacc = [imu_ref[k, i] for i in range(3)]
@@ -111,332 +100,86 @@ def _make_kernel(k_steps: int, acc_bias_std: float, gyr_bias_std: float,
             dt = jnp.maximum(t_k - ts, 0.0) * eff
 
             acc_body = [lacc[i] - ba[i] for i in range(3)]
-            w_body = [(avel[i] - bg[i]) * dt for i in range(3)]
-            rd = _rodrigues_scalars(w_body[0], w_body[1], w_body[2])
+            rd = _rot_scalars(*[(avel[i] - bg[i]) * dt for i in range(3)])
 
             # mechanization (matches process_imu: masked samples dt=0
             # leave pos/vel unchanged; attitude gated explicitly)
-            lacc_g = [r[3 * i] * acc_body[0] + r[3 * i + 1] * acc_body[1]
-                      + r[3 * i + 2] * acc_body[2] for i in range(3)]
-            acc_tot = [lacc_g[i] + grav[i] for i in range(3)]
+            acc_tot = [r[3 * i] * acc_body[0] + r[3 * i + 1] * acc_body[1]
+                       + r[3 * i + 2] * acc_body[2] + grav[i]
+                       for i in range(3)]
             new_pos = [pos[i] + vel[i] * dt + 0.5 * acc_tot[i] * dt * dt
                        for i in range(3)]
             new_vel = [vel[i] + acc_tot[i] * dt for i in range(3)]
             r_next = _matmul3_scalars(r, rd)
             r_new = [jnp.where(eff > 0, r_next[i], r[i]) for i in range(9)]
 
-            # --- covariance: F P F^T + W on the vector/matrix units.
-            # dt = 0 (masked / uninitialized) gives exactly F = I, W = 0.
-            fx = eye
-            for i in range(3):
-                fx = put(fx, POS + i, VEL + i, dt)
-                fx = put(fx, PHI + i, BG + i, -dt)
-            # VEL x PHI block: -dt * R @ hat(acc_body)
+            # covariance: F P F^T + W; dt = 0 gives exactly F = I, W = 0
             h = (0.0, -acc_body[2], acc_body[1],
                  acc_body[2], 0.0, -acc_body[0],
                  -acc_body[1], acc_body[0], 0.0)
             rh = _matmul3_scalars(r, h)
+            fx = eye
             for i in range(3):
+                fx = jnp.where((ir == POS + i) & (ic == VEL + i), dt, fx)
+                fx = jnp.where((ir == PHI + i) & (ic == BG + i), -dt, fx)
                 for j in range(3):
-                    fx = put(fx, VEL + i, PHI + j, -dt * rh[3 * i + j])
-                    fx = put(fx, VEL + i, BA + j, -dt * r[3 * i + j])
-                    # PHI x PHI block: rot_dtheta^T (I for masked steps)
-                    fx = put(fx, PHI + i, PHI + j, rd[3 * j + i])
-
-            wvel = (dt * acc_bias_std) ** 2
-            wphi = (dt * gyr_bias_std) ** 2
-            wba = dt * acc_vrw ** 2
-            wbg = dt * gyr_arw ** 2
-            in_vel = (ir >= VEL) & (ir < VEL + 3)
-            in_phi = (ir >= PHI) & (ir < PHI + 3)
-            in_bg = (ir >= BG) & (ir < BG + 3)
-            in_ba = (ir >= BA) & (ir < BA + 3)
-            wdiag = (in_vel.astype(jnp.float32) * wvel
-                     + in_phi.astype(jnp.float32) * wphi
-                     + in_bg.astype(jnp.float32) * wbg
-                     + in_ba.astype(jnp.float32) * wba) * eye
-
-            fp = jnp.dot(fx, p, preferred_element_type=jnp.float32)
-            p_new = jnp.dot(fp, fx.T,
-                            preferred_element_type=jnp.float32) + wdiag
+                    fx = jnp.where((ir == VEL + i) & (ic == PHI + j),
+                                   -dt * rh[3 * i + j], fx)
+                    fx = jnp.where((ir == VEL + i) & (ic == BA + j),
+                                   -dt * r[3 * i + j], fx)
+                    # PHI x PHI block: rot_dtheta^T
+                    fx = jnp.where((ir == PHI + i) & (ic == PHI + j),
+                                   rd[3 * j + i], fx)
+            wdiag = jnp.where(
+                ir == ic,
+                jnp.where(in_blk[0], (dt * acc_bias_std) ** 2, 0.0)
+                + jnp.where(in_blk[1], (dt * gyr_bias_std) ** 2, 0.0)
+                + jnp.where(in_blk[2], dt * gyr_arw ** 2, 0.0)
+                + jnp.where(in_blk[3], dt * acc_vrw ** 2, 0.0),
+                0.0)
+            p_new = _dot(_dot(fx, p), fx, trans_b=True) + wdiag
             p = 0.5 * (p_new + p_new.T)
 
             pos, vel, r = new_pos, new_vel, r_new
             # first valid sample of an uninitialized filter latches ts
-            # directly (esekf.process_imu latch branch / assoc fix)
+            # directly (esekf.process_imu latch branch)
             ts = jnp.where(
                 ok > 0, jnp.where(init > 0, jnp.maximum(t_k, ts), t_k), ts)
             init = jnp.maximum(init, ok)
 
         for i in range(3):
-            out_ref[0, _O_POS + i] = pos[i]
-            out_ref[0, _O_VEL + i] = vel[i]
+            out_ref[_O_POS + i] = pos[i]
+            out_ref[_O_VEL + i] = vel[i]
         for i in range(9):
-            out_ref[0, _O_R + i] = r[i]
-        out_ref[0, _O_TS] = ts
-        out_ref[0, _O_INIT] = init
-        cov_out_ref[:] = p
+            out_ref[_O_R + i] = r[i]
+        out_ref[_O_TS] = ts
+        out_ref[_O_INIT] = init
+        cov_out_ref[...] = p
 
         # deskew twist log(T_in^-1 @ T_out) — the EKF-integrated sweep
-        # motion the LIO pipeline feeds to deskew_by_twist; computing it
-        # here removes the XLA chain (2x quat_to_mat + inv + matmul +
-        # log_pose, ~40 small ops) from the scan body
-        from .pallas_icp import _log_pose_scalars
+        # motion the LIO pipeline feeds to deskew_by_twist
         r0t = (r0[0], r0[3], r0[6], r0[1], r0[4], r0[7],
                r0[2], r0[5], r0[8])
         rel_r = _matmul3_scalars(r0t, r)
-        dp = (pos[0] - p0[0], pos[1] - p0[1], pos[2] - p0[2])
-        rel_t = (
-            r0t[0] * dp[0] + r0t[1] * dp[1] + r0t[2] * dp[2],
-            r0t[3] * dp[0] + r0t[4] * dp[1] + r0t[5] * dp[2],
-            r0t[6] * dp[0] + r0t[7] * dp[1] + r0t[8] * dp[2],
-        )
+        dp = [pos[i] - p0[i] for i in range(3)]
+        rel_t = tuple(r0t[3 * i] * dp[0] + r0t[3 * i + 1] * dp[1]
+                      + r0t[3 * i + 2] * dp[2] for i in range(3))
         tw = _log_pose_scalars(rel_r, rel_t)
         for i in range(6):
-            out_ref[0, _O_TWIST + i] = tw[i]
+            out_ref[_O_TWIST + i] = tw[i]
 
     return kernel
 
 
-# ---------------------------------------------------------------- update
-
-# update kernel scal SMEM layout (1, 96)
-_U_POS, _U_VEL, _U_R = 0, 3, 6
-_U_BG, _U_BA, _U_G = 15, 18, 21
-_U_MR, _U_MT = 24, 33               # measured pose R[9] + t[3]
-_U_MC = 36                          # meas cov [6, 6] row-major (36)
-_U_JOSEPH = 72                      # 1.0 = Joseph form
-# out SMEM (1, 32): pos3 vel3 R9 bg3 ba3 grav3
-
-_EPS_LOG = 1e-8
-
-
-def _acos_scalar(c):
-    """Newton arccos (no acos lowering in Mosaic); two-sided seed —
-    same scheme as ops.pallas_gather._acos_newton, scalar form."""
-    guard = 1e-3
-    lo = jnp.sqrt(jnp.maximum(2.0 * (1.0 + c), 0.0))
-    hi = jnp.sqrt(jnp.maximum(2.0 * (1.0 - c), 0.0))
-    x = jnp.where(c < 0.0, jnp.float32(3.14159265) - lo, hi)
-    for _ in range(3):
-        s = jnp.sin(x)
-        step = (jnp.cos(x) - c) / jnp.maximum(s, guard)
-        x = x + jnp.where(s > guard, step, 0.0)
-    return x
-
-
-def _log_rot_scalars(r):
-    """SO(3) log of 9 row-major scalars -> rotvec (3 scalars); direct
-    axis-angle form (stable for |rot| << pi — pose-update residual
-    rotations are fractions of a degree)."""
-    tr = r[0] + r[4] + r[8]
-    cos_t = jnp.clip((tr - 1.0) * 0.5, -1.0, 1.0)
-    theta = _acos_scalar(cos_t)
-    t2 = theta * theta
-    small = theta < 1e-4
-    sin_t = jnp.sin(theta)
-    fac = jnp.where(small, 0.5 + t2 / 12.0,
-                    theta / jnp.maximum(2.0 * sin_t, _EPS_LOG))
-    return (fac * (r[7] - r[5]), fac * (r[2] - r[6]), fac * (r[3] - r[1]))
-
-
-def _make_update_kernel():
-    def kernel(scal_ref, cov_ref, out_ref, cov_out_ref):
-        r = [scal_ref[0, _U_R + i] for i in range(9)]
-        mr = [scal_ref[0, _U_MR + i] for i in range(9)]
-        joseph = scal_ref[0, _U_JOSEPH]
-
-        # residual: [t_meas - pos, log(R_k^T R_meas)]
-        m = _matmul3_scalars((r[0], r[3], r[6], r[1], r[4], r[7],
-                              r[2], r[5], r[8]), mr)   # R^T @ R_meas
-        rv = _log_rot_scalars(m)
-        res = [scal_ref[0, _U_MT + i] - scal_ref[0, _U_POS + i]
-               for i in range(3)] + list(rv)
-
-        p = cov_ref[:]                                  # [18, 18]
-        ir = jax.lax.broadcasted_iota(jnp.int32, (STATE, STATE), 0)
-        ic = jax.lax.broadcasted_iota(jnp.int32, (STATE, STATE), 1)
-        eye = (ir == ic).astype(jnp.float32)
-
-        # C = P @ Jp^T embedded in cols 0..5 ([18, 18], rest zero):
-        # Jp selects POS rows then PHI rows, so C's col j is P's col
-        # POS+j (j<3) / PHI+j-3 (j>=3)
-        sel = ((ic < 3) & (ir == ic + POS)) | \
-              ((ic >= 3) & (ic < 6) & (ir == ic - 3 + PHI))
-        jpt = sel.astype(jnp.float32)                   # [18, 18] = Jp^T
-        c_full = jnp.dot(p, jpt, preferred_element_type=jnp.float32)
-
-        # transpose via MXU (Mosaic has no cheap 2D transpose op):
-        # m^T = dot(m, I) contracting m's dim 0
-        def _t(mat):
-            return jax.lax.dot_general(
-                mat, eye, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        # S = Jp C + meas_cov as 6x6 scalars (read from c_full rows)
-        smat = [[None] * 6 for _ in range(6)]
-        for i in range(6):
-            src = POS + i if i < 3 else PHI + i - 3
-            for j in range(6):
-                smat[i][j] = (c_full[src, j]
-                              + scal_ref[0, _U_MC + 6 * i + j])
-
-        # Sinv via unrolled scalar Cholesky solve against I6
-        l = [[None] * 6 for _ in range(6)]
-        for i in range(6):
-            for j in range(i + 1):
-                acc = smat[i][j]
-                for kk in range(j):
-                    acc = acc - l[i][kk] * l[j][kk]
-                if i == j:
-                    l[i][j] = jnp.sqrt(jnp.maximum(acc, 1e-12))
-                else:
-                    l[i][j] = acc / l[j][j]
-        sinv = [[None] * 6 for _ in range(6)]
-        for col in range(6):
-            y = [None] * 6
-            for i in range(6):
-                acc = jnp.float32(1.0) if i == col else jnp.float32(0.0)
-                for kk in range(i):
-                    acc = acc - l[i][kk] * y[kk]
-                y[i] = acc / l[i][i]
-            x = [None] * 6
-            for i in reversed(range(6)):
-                acc = y[i]
-                for kk in range(i + 1, 6):
-                    acc = acc - l[kk][i] * x[kk]
-                x[i] = acc / l[i][i]
-            for i in range(6):
-                sinv[i][col] = x[i]
-
-        # materialize Sinv / meas_cov / resid into padded matrices
-        sinv_full = jnp.zeros_like(p)
-        mc_full = jnp.zeros_like(p)
-        for i in range(6):
-            for j in range(6):
-                cell = (ir == i) & (ic == j)
-                sinv_full = jnp.where(cell, sinv[i][j], sinv_full)
-                mc_full = jnp.where(
-                    cell, scal_ref[0, _U_MC + 6 * i + j], mc_full)
-        res_col = jnp.zeros_like(p[:, :1])              # [18, 1]
-        irc = jax.lax.broadcasted_iota(jnp.int32, (STATE, 1), 0)
-        for i in range(6):
-            res_col = jnp.where(irc == i, res[i], res_col)
-
-        k_full = jnp.dot(c_full, sinv_full,
-                         preferred_element_type=jnp.float32)
-        dx_col = jnp.dot(k_full, res_col,
-                         preferred_element_type=jnp.float32)  # [18, 1]
-        jp_full = _t(jpt)
-        ikj = eye - jnp.dot(k_full, jp_full,
-                            preferred_element_type=jnp.float32)
-        ikjp = jnp.dot(ikj, p, preferred_element_type=jnp.float32)
-        cov_j = jnp.dot(ikjp, _t(ikj),
-                        preferred_element_type=jnp.float32) \
-            + jnp.dot(jnp.dot(k_full, mc_full,
-                              preferred_element_type=jnp.float32),
-                      _t(k_full), preferred_element_type=jnp.float32)
-        cov_p = ikjp
-        cov = jnp.where(joseph > 0, cov_j, cov_p)
-        cov = 0.5 * (cov + _t(cov))
-
-        dx = [dx_col[i, 0] for i in range(STATE)]
-        dphi = (dx[PHI], dx[PHI + 1], dx[PHI + 2])
-        rd = _rodrigues_scalars(*dphi)
-        r_new = _matmul3_scalars(r, rd)
-
-        # attitude covariance projection: G = I - hat(dphi/2)
-        hx, hy, hz = 0.5 * dphi[0], 0.5 * dphi[1], 0.5 * dphi[2]
-        g = (1.0, hz, -hy, -hz, 1.0, hx, hy, -hx, 1.0)
-        blk = [[cov[PHI + i, PHI + j] for j in range(3)] for i in range(3)]
-        gb = [[None] * 3 for _ in range(3)]
-        for i in range(3):
-            for j in range(3):
-                gb[i][j] = sum(g[3 * i + kk] * blk[kk][j]
-                               for kk in range(3))
-        gbg = [[None] * 3 for _ in range(3)]
-        for i in range(3):
-            for j in range(3):
-                gbg[i][j] = sum(gb[i][kk] * g[3 * j + kk]
-                                for kk in range(3))
-        for i in range(3):
-            for j in range(3):
-                cov = jnp.where(
-                    (ir == PHI + i) & (ic == PHI + j), gbg[i][j], cov)
-
-        for i in range(3):
-            out_ref[0, _O_POS + i] = scal_ref[0, _U_POS + i] + dx[POS + i]
-            out_ref[0, _O_VEL + i] = scal_ref[0, _U_VEL + i] + dx[VEL + i]
-            out_ref[0, 15 + i] = scal_ref[0, _U_BG + i] + dx[BG + i]
-            out_ref[0, 18 + i] = scal_ref[0, _U_BA + i] + dx[BA + i]
-            out_ref[0, 21 + i] = scal_ref[0, _U_G + i] + dx[15 + i]
-        for i in range(9):
-            out_ref[0, _O_R + i] = r_new[i]
-        cov_out_ref[:] = cov
-
-    return kernel
-
-
-@partial(jax.jit, inline=True, static_argnames=("joseph", "interpret"))
-def update_pose_pallas(s, pose_meas, meas_cov, *, joseph: bool = True,
-                       interpret: bool = False):
-    """One-launch EKF pose update (the reference ``processPose``,
-    ``src/ptudes/ins/es_ekf.py:259-327``): residual, 6x6 SPD solve,
-    Kalman gain, Joseph/simple covariance update, error injection and
-    the attitude-covariance projection all inside one kernel — the
-    XLA form is ~100+ small ops (the unrolled Cholesky alone emits
-    dozens of scalar HLOs). Same math as ``esekf.process_pose`` to f32
-    roundoff (matrix-form attitude, Newton-acos rotation log).
-    """
-    from ..geom import so3
-    from ..models.esekf import EkfState
-
-    scal = jnp.zeros((1, 96), jnp.float32)
-    scal = scal.at[0, _U_POS:_U_POS + 3].set(s.pos)
-    scal = scal.at[0, _U_VEL:_U_VEL + 3].set(s.vel)
-    scal = scal.at[0, _U_R:_U_R + 9].set(so3.quat_to_mat(s.quat).reshape(9))
-    scal = scal.at[0, _U_BG:_U_BG + 3].set(s.bias_gyr)
-    scal = scal.at[0, _U_BA:_U_BA + 3].set(s.bias_acc)
-    scal = scal.at[0, _U_G:_U_G + 3].set(s.grav)
-    pm = pose_meas.astype(jnp.float32)
-    scal = scal.at[0, _U_MR:_U_MR + 9].set(pm[:3, :3].reshape(9))
-    scal = scal.at[0, _U_MT:_U_MT + 3].set(pm[:3, 3])
-    scal = scal.at[0, _U_MC:_U_MC + 36].set(
-        meas_cov.astype(jnp.float32).reshape(36))
-    scal = scal.at[0, _U_JOSEPH].set(1.0 if joseph else 0.0)
-
-    out, cov = pl.pallas_call(
-        _make_update_kernel(),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),    # scal (1, 96)
-            pl.BlockSpec(memory_space=pltpu.VMEM),    # cov [18, 18]
-        ],
-        out_specs=(pl.BlockSpec(memory_space=pltpu.SMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=(jax.ShapeDtypeStruct((1, 32), jnp.float32),
-                   jax.ShapeDtypeStruct((STATE, STATE), jnp.float32)),
-        interpret=interpret,
-    )(scal, s.cov.astype(jnp.float32))
-
-    from ..geom import so3 as _so3
-    quat = _so3.mat_to_quat(out[0, _O_R:_O_R + 9].reshape(3, 3))
-    return EkfState(
-        pos=out[0, _O_POS:_O_POS + 3],
-        vel=out[0, _O_VEL:_O_VEL + 3],
-        quat=quat,
-        bias_gyr=out[0, 15:18],
-        bias_acc=out[0, 18:21],
-        grav=out[0, 21:24],
-        cov=cov,
-        imu_ts=s.imu_ts,
-        initialized=s.initialized,
-    )
+def _pad_cov(cov):
+    return jnp.pad(cov.astype(jnp.float32),
+                   ((0, TILE - STATE), (0, TILE - STATE)))
 
 
 @partial(jax.jit, inline=True,
          static_argnames=("cfg", "interpret", "want_twist"))
-def predict_block_pallas(s, imus, valid, *, cfg, interpret: bool = False,
-                         want_twist: bool = False):
+def predict_block(s, imus, valid, *, cfg, interpret: bool = False,
+                  want_twist: bool = False):
     """One-launch EKF predict over a padded IMU block.
 
     Same in/out contract as ``esekf._process_imu_batch_assoc``: takes an
@@ -451,17 +194,11 @@ def predict_block_pallas(s, imus, valid, *, cfg, interpret: bool = False,
     from ..models.esekf import EkfState
 
     k = valid.shape[0]
-    scal = jnp.zeros((1, 64), jnp.float32)
-    scal = scal.at[0, _I_POS:_I_POS + 3].set(s.pos)
-    scal = scal.at[0, _I_VEL:_I_VEL + 3].set(s.vel)
-    scal = scal.at[0, _I_R:_I_R + 9].set(
-        so3.quat_to_mat(s.quat).reshape(9))
-    scal = scal.at[0, _I_BG:_I_BG + 3].set(s.bias_gyr)
-    scal = scal.at[0, _I_BA:_I_BA + 3].set(s.bias_acc)
-    scal = scal.at[0, _I_G:_I_G + 3].set(s.grav)
-    scal = scal.at[0, _I_TS].set(s.imu_ts)
-    scal = scal.at[0, _I_INIT].set(s.initialized.astype(jnp.float32))
-
+    scal = jnp.concatenate([
+        s.pos, s.vel, so3.quat_to_mat(s.quat).reshape(9),
+        s.bias_gyr, s.bias_acc, s.grav,
+        jnp.stack([s.imu_ts, s.initialized.astype(jnp.float32)]),
+        jnp.zeros((6,))]).astype(jnp.float32)
     imu_rows = jnp.concatenate([
         imus.lacc.astype(jnp.float32),
         imus.avel.astype(jnp.float32),
@@ -469,32 +206,25 @@ def predict_block_pallas(s, imus, valid, *, cfg, interpret: bool = False,
         valid.astype(jnp.float32)[:, None],
     ], axis=1)                                        # [K, 8]
 
-    kern = _make_kernel(k, cfg.acc_bias_std, cfg.gyr_bias_std,
-                        cfg.acc_vrw, cfg.gyr_arw)
+    kern = _make_predict_kernel(k, cfg.acc_bias_std, cfg.gyr_bias_std,
+                                cfg.acc_vrw, cfg.gyr_arw)
     out, cov = pl.pallas_call(
         kern,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),    # scal (1, 64)
-            pl.BlockSpec(memory_space=pltpu.SMEM),    # imu (K, 8)
-            pl.BlockSpec(memory_space=pltpu.VMEM),    # cov [18, 18]
-        ],
-        out_specs=(pl.BlockSpec(memory_space=pltpu.SMEM),
-                   pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=(jax.ShapeDtypeStruct((1, 32), jnp.float32),
-                   jax.ShapeDtypeStruct((STATE, STATE), jnp.float32)),
-        interpret=interpret,
-    )(scal, imu_rows, s.cov.astype(jnp.float32))
+        out_shape=(jax.ShapeDtypeStruct((32,), jnp.float32),
+                   jax.ShapeDtypeStruct((TILE, TILE), jnp.float32)),
+        backend="triton", compiler_params=_PARAMS, interpret=interpret,
+        name="ekf_predict",
+    )(scal, imu_rows, _pad_cov(s.cov))
 
-    quat = so3.mat_to_quat(out[0, _O_R:_O_R + 9].reshape(3, 3))
     st = EkfState(
-        pos=out[0, _O_POS:_O_POS + 3],
-        vel=out[0, _O_VEL:_O_VEL + 3],
-        quat=quat,
+        pos=out[_O_POS:_O_POS + 3],
+        vel=out[_O_VEL:_O_VEL + 3],
+        quat=so3.mat_to_quat(out[_O_R:_O_R + 9].reshape(3, 3)),
         bias_gyr=s.bias_gyr, bias_acc=s.bias_acc, grav=s.grav,
-        cov=cov,
-        imu_ts=out[0, _O_TS],
-        initialized=out[0, _O_INIT] > 0,
+        cov=cov[:STATE, :STATE],
+        imu_ts=out[_O_TS],
+        initialized=out[_O_INIT] > 0,
     )
     if want_twist:
-        return st, out[0, _O_TWIST:_O_TWIST + 6]
+        return st, out[_O_TWIST:_O_TWIST + 6]
     return st

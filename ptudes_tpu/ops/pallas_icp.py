@@ -1,26 +1,21 @@
-"""Pallas TPU kernel: the ENTIRE robust GN ICP loop in one launch.
+"""Pallas kernel (Triton route): the whole robust GN ICP loop in one launch.
 
 ``ops.icp.register_frame_cached`` with frozen candidates runs the GN
-iteration as an XLA ``while_loop`` whose body is one fused Pallas kernel
-(~9 us) plus a scalar 6x6 solve / SE(3) update chain. Measured on the
-bench shapes the loop costs ~550 us/scan of which the kernels are ~45 us
-— the rest is the while-loop carry boundary (~100 us per trip through
-the fused scan program) and the small-op scalar chain between kernels.
+iteration as an XLA ``while_loop``. On XLA:GPU its predicate goes back to
+the host on every trip, and its body is several small kernels (distance
++ select, moment reductions, the 6x6 solve and the SE(3) update). This
+kernel runs the whole loop in ONE program: each trip streams the frozen
+candidate tensors from L2 in chunks of ``chunk`` points, keeps the 45
+moment sums as per-lane vector accumulators (one block reduction each
+per trip, not per chunk), then solves the 6x6 system and applies the
+SE(3) update in scalars, and exits when the step converges.
 
-This module moves the *whole loop* inside one ``pallas_call``: the
-``lax.while_loop`` becomes a Mosaic scalar loop around the vector body,
-the 6x6 Cholesky solve, the motion-prior ``log``, and the SE(3) update
-all run on the TPU scalar unit between vector passes, and the program
-pays ONE kernel launch per registration instead of one launch + one
-XLA loop boundary per GN step.
-
-Semantics match ``register_frame_cached(gn_backend="pallas",
-nn_refresh_drift=0.0)`` — frozen candidates, convergence-masked early
-exit, robust point/plane dual loss, optional motion prior — with one
-documented deviation: the in-kernel ``log`` of the prior's relative pose
-uses the direct axis-angle formula (stable for |rot| well below pi)
-instead of the quaternion path. ICP refinement poses stay within a few
-degrees of the guess, far inside the stable range.
+Semantics match the XLA loop (``gn_backend="xla"``) — frozen
+candidates, convergence-masked early exit, robust point/plane dual loss,
+optional motion prior — with one documented deviation: the in-kernel
+``log`` of the prior's relative pose uses the direct axis-angle formula
+(stable for |rot| well below pi) instead of the quaternion path. ICP
+refinement poses stay within a few degrees of the guess.
 
 Reference behavior being replaced: the per-iteration C++ hot call
 ``kiss_icp::registration::register_frame`` (reference
@@ -33,21 +28,31 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
-_EPS = 1e-8  # small-angle switch, matches geom.so3._EPS
+_EPS = 1e-8    # small-angle switch, matches geom.so3._EPS
+_BIG = 1e30    # distance offset of an invalid candidate
 
-# scal SMEM layout (1, 32)
+# scal layout [32]
 _S_KERN, _S_MAXD2, _S_PLQ, _S_CONV2 = 0, 1, 2, 3
 _S_PRW, _S_PTW = 4, 5
-_S_POSE = 8       # rows 8..19: guess, row-major [r00 r01 r02 t0; ...]
-_S_POSE_INV = 20  # rows 20..31: inverse guess, same layout
+_S_POSE = 8       # 8..19: guess, row-major [r00 r01 r02 t0; ...]
+_S_POSE_INV = 20  # 20..31: inverse guess, same layout
 
-# out SMEM layout (1, 16): 0..11 pose, 12 n_corr, 13 iters,
+# out layout [16]: 0..11 pose, 12 n_corr, 13 iters,
 # 14 |trans(guess^-1 pose)|, 15 |log rot(guess^-1 pose)| (the model
-# deviation the adaptive threshold consumes — computed in the kernel
-# epilogue since guess_inv is already in SMEM)
+# deviation the adaptive threshold consumes)
 _O_POSE, _O_NCORR, _O_ITERS, _O_DEVT, _O_DEVR = 0, 12, 13, 14, 15
+
+# per-point rows of the ``rows`` input
+_R_SRC, _R_NRM, _R_CEN, _R_QUAL, _R_MASK = 0, 3, 6, 9, 10
+_N_ROWS = 16
+
+_POSE_KEYS = (0, 1, 2, 4, 5, 6, 8, 9, 10, 3, 7, 11)  # R row-major, then t
+
+# launch shape: one program of NUM_WARPS warps; a [chunk, C] candidate
+# tile holds TILE_ELEMS floats per operand
+NUM_WARPS, NUM_STAGES, TILE_ELEMS = 4, 1, 2048
 
 
 def _solve_spd6_scalars(a, b):
@@ -157,26 +162,15 @@ def _compose_scalars(ra, ta, rb, tb):
     return r, t
 
 
-def _acos_scalar(c):
-    """arccos for Mosaic (no acos/atan lowering on TPU Pallas): Newton
-    inversion of cos seeded with the half-angle identity
-    ``theta0 = sqrt(2 (1 - c))`` (exact to O(theta^3)/24). Two steps reach
-    f32 machine precision for theta < ~2 rad; degrades near pi where
-    sin -> 0, which ICP refinement poses never approach."""
-    x = jnp.sqrt(jnp.maximum(2.0 * (1.0 - c), 0.0))
-    for _ in range(2):
-        x = x + (jnp.cos(x) - c) / jnp.maximum(jnp.sin(x), _EPS)
-    return x
-
-
 def _log_pose_scalars(r, t):
     """SE(3) log as 6 scalars. Direct axis-angle formula (NOT the
-    quaternion path geom.so3.log_rotmat uses): stable for |rot| << pi,
-    which holds for any sane ICP refinement relative pose."""
+    quaternion path geom.so3.log_rotmat uses): stable for |rot| << pi.
+    The rotation vector's magnitude comes from vee(R - R^T), so the
+    f32 coarseness of arccos near 1 only touches the O(theta^2)
+    factor."""
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = r
     tr = r00 + r11 + r22
-    cos_t = jnp.clip((tr - 1.0) * 0.5, -1.0, 1.0)
-    theta = _acos_scalar(cos_t)
+    theta = jnp.arccos(jnp.clip((tr - 1.0) * 0.5, -1.0, 1.0))
     t2 = theta * theta
     small = theta < 1e-4
     sin_t = jnp.sin(theta)
@@ -212,226 +206,224 @@ def _log_pose_scalars(r, t):
     return (wx, wy, wz, vx, vy, vz)
 
 
-def _make_loop_kernel(max_iterations: int, use_prior: bool,
-                      loop_mode: str = "while"):
-    """Build the whole-loop kernel.
+def _chunk_moments(pose, rows_ref, cx_ref, cy_ref, cz_ref, inf_ref, off,
+                   chunk, kern, max_d2, plane_q):
+    """The 45 per-point moment terms of one chunk of points at ``pose``,
+    as [chunk] vectors (row layout of the normal-equation assembly in
+    :func:`_make_loop_kernel`)."""
+    r, t = pose[:9], pose[9:]
+    sl = pl.ds(off, chunk)
 
-    LAYOUT: points are folded into full (NS, 128) vector-register tiles
-    (NS = N/128) instead of [1, N] rows. A [1, N] value occupies one of
-    the 8 sublanes of each vreg, so every elementwise op on it runs at
-    1/8 VPU width — measured ~140 us per GN iteration for a dense pass
-    whose full-width cost is ~10 us. Per-point quantities are (NS, 128),
-    candidate tensors (C, NS, 128); all ~40 elementwise ops of the
-    iteration then run on fully-packed vregs."""
-    def kernel(src_ref, f_ref, cx_ref, cy_ref, cz_ref, inf_ref, scal_ref,
+    def row(i):
+        return rows_ref[i, sl]
+
+    sx, sy, sz = row(_R_SRC), row(_R_SRC + 1), row(_R_SRC + 2)
+    nx, ny, nz = row(_R_NRM), row(_R_NRM + 1), row(_R_NRM + 2)
+    ccx, ccy, ccz = row(_R_CEN), row(_R_CEN + 1), row(_R_CEN + 2)
+    quality, mask = row(_R_QUAL), row(_R_MASK)
+
+    px = r[0] * sx + r[1] * sy + r[2] * sz + t[0]
+    py = r[3] * sx + r[4] * sy + r[5] * sz + t[1]
+    pz = r[6] * sx + r[7] * sy + r[8] * sz + t[2]
+
+    cx = cx_ref[sl, :]                                  # [chunk, C]
+    cy = cy_ref[sl, :]
+    cz = cz_ref[sl, :]
+    d2 = ((cx - px[:, None]) ** 2 + (cy - py[:, None]) ** 2
+          + (cz - pz[:, None]) ** 2 + inf_ref[sl, :])
+    d2min = jnp.min(d2, axis=1)
+    # first-occurrence one-hot of the minimum (hashmap._argmin_select)
+    col = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
+    kmin = jnp.min(jnp.where(d2 == d2min[:, None], col, 1 << 30), axis=1)
+    oneh = col == kmin[:, None]
+    qx = jnp.sum(jnp.where(oneh, cx, 0.0), axis=1)
+    qy = jnp.sum(jnp.where(oneh, cy, 0.0), axis=1)
+    qz = jnp.sum(jnp.where(oneh, cz, 0.0), axis=1)
+
+    found = d2min < 0.5 * _BIG
+    corr = (mask > 0.0) & found & (d2min <= max_d2)
+
+    s = nx * (px - ccx) + ny * (py - ccy) + nz * (pz - ccz)
+    use_pl = corr & (quality >= plane_q)
+    w_pl = jnp.where(use_pl, (kern * kern) / ((kern + s * s) ** 2), 0.0)
+    ax = py * nz - pz * ny                              # a = p x n
+    ay = pz * nx - px * nz
+    az = px * ny - py * nx
+
+    use_pt = corr & jnp.logical_not(use_pl)
+    w_pt = jnp.where(use_pt, (kern * kern) / ((kern + d2min) ** 2), 0.0)
+    rx, ry, rz = px - qx, py - qy, pz - qz
+
+    terms = [
+        w_pt,
+        w_pt * px, w_pt * py, w_pt * pz,
+        w_pt * px * px, w_pt * py * py, w_pt * pz * pz,
+        w_pt * px * py, w_pt * px * pz, w_pt * py * pz,
+        w_pt * (py * rz - pz * ry),
+        w_pt * (pz * rx - px * rz),
+        w_pt * (px * ry - py * rx),
+        w_pt * rx, w_pt * ry, w_pt * rz,
+    ]
+    rvec = (ax, ay, az, nx, ny, nz)
+    for u in range(6):
+        for v in range(u, 6):
+            terms.append(w_pl * rvec[u] * rvec[v])
+    for u in range(6):
+        terms.append(w_pl * rvec[u] * s)
+    terms.append(jnp.where(corr, 1.0, 0.0))
+    terms.append(w_pl)
+    return terms
+
+
+_N_TERMS = 45
+
+
+def _normal_equations(sums):
+    """6x6 JtJ (python lists) and Jtr from the 45 moment sums."""
+    sw = sums[0]
+    spx, spy, spz = sums[1], sums[2], sums[3]
+    pxx, pyy, pzz = sums[4], sums[5], sums[6]
+    pxy, pxz, pyz = sums[7], sums[8], sums[9]
+    # point-to-point: JtJ = [trace*I - Spp, hat(Sp); -hat(Sp), Sw*I]
+    trc = pxx + pyy + pzz
+    zero = jnp.float32(0.0)
+    a = [[zero] * 6 for _ in range(6)]
+    a[0][0], a[1][1], a[2][2] = trc - pxx, trc - pyy, trc - pzz
+    a[0][1], a[0][2], a[1][2] = -pxy, -pxz, -pyz
+    a[0][4], a[0][5] = -spz, spy
+    a[1][3], a[1][5] = spz, -spx
+    a[2][3], a[2][4] = -spy, spx
+    a[3][3] = a[4][4] = a[5][5] = sw
+    b = list(sums[10:16])
+    # plane rows = [p x n | n], residual s
+    k = 16
+    for u in range(6):
+        for v in range(u, 6):
+            a[u][v] = a[u][v] + sums[k]
+            k += 1
+    for u in range(6):
+        b[u] = b[u] + sums[k]
+        k += 1
+    for u in range(6):
+        for v in range(u):
+            a[u][v] = a[v][u]
+    return a, b
+
+
+def _make_loop_kernel(max_iterations: int, use_prior: bool, n_chunks: int,
+                      chunk: int):
+    def kernel(rows_ref, cx_ref, cy_ref, cz_ref, inf_ref, scal_ref,
                out_ref):
-        kern = scal_ref[0, _S_KERN]
-        max_d2 = scal_ref[0, _S_MAXD2]
-        plane_q = scal_ref[0, _S_PLQ]
-        conv2 = scal_ref[0, _S_CONV2]
-        prw = scal_ref[0, _S_PRW]
-        ptw = scal_ref[0, _S_PTW]
-        gi_r = tuple(scal_ref[0, _S_POSE_INV + k]
-                     for k in (0, 1, 2, 4, 5, 6, 8, 9, 10))
-        gi_t = tuple(scal_ref[0, _S_POSE_INV + k] for k in (3, 7, 11))
-
-        src = src_ref[:]                               # [8, NS, 128]
-        sx, sy, sz = src[0], src[1], src[2]            # [NS, 128]
-        f = f_ref[:]
-        nx, ny, nz = f[0], f[1], f[2]
-        ccx, ccy, ccz = f[3], f[4], f[5]
-        quality = f[6]
-        mask = f[7]
-        cx = cx_ref[:]                                 # [C, NS, 128]
-        cy = cy_ref[:]
-        cz = cz_ref[:]
-        inf = inf_ref[:]
-        row_id = jax.lax.broadcasted_iota(jnp.int32, cx.shape, 0)
+        kern = scal_ref[_S_KERN]
+        max_d2 = scal_ref[_S_MAXD2]
+        plane_q = scal_ref[_S_PLQ]
+        conv2 = scal_ref[_S_CONV2]
+        prw = scal_ref[_S_PRW]
+        ptw = scal_ref[_S_PTW]
+        gi = tuple(scal_ref[_S_POSE_INV + k] for k in _POSE_KEYS)
+        gi_r, gi_t = gi[:9], gi[9:]
 
         def body(carry):
             pose, _conv, _n_corr, iters = carry
-            r = pose[:9]
-            t = pose[9:]
-            px = r[0] * sx + r[1] * sy + r[2] * sz + t[0]   # [NS, 128]
-            py = r[3] * sx + r[4] * sy + r[5] * sz + t[1]
-            pz = r[6] * sx + r[7] * sy + r[8] * sz + t[2]
 
-            d2 = ((cx - px[None]) ** 2 + (cy - py[None]) ** 2
-                  + (cz - pz[None]) ** 2 + inf)             # [C, NS, 128]
-            d2min = jnp.min(d2, axis=0)                     # [NS, 128]
-            hit_row = jnp.where(d2 == d2min[None], row_id,
-                                jnp.int32(1 << 30))
-            kmin = jnp.min(hit_row, axis=0)
-            oneh = (row_id == kmin[None]).astype(jnp.float32)
-            qx = jnp.sum(oneh * cx, axis=0)
-            qy = jnp.sum(oneh * cy, axis=0)
-            qz = jnp.sum(oneh * cz, axis=0)
+            def chunk_body(i, acc):
+                terms = _chunk_moments(
+                    pose, rows_ref, cx_ref, cy_ref, cz_ref, inf_ref,
+                    i * chunk, chunk, kern, max_d2, plane_q)
+                return tuple(a + b for a, b in zip(acc, terms))
 
-            found = d2min < jnp.float32(1e30)
-            corr = (mask > 0) & found & (d2min <= max_d2)
+            acc0 = tuple(jnp.zeros((chunk,), jnp.float32)
+                         for _ in range(_N_TERMS))
+            acc = jax.lax.fori_loop(0, n_chunks, chunk_body, acc0)
+            sums = [jnp.sum(v) for v in acc]
+            a, b = _normal_equations(sums)
+            n_corr = sums[43]
+            tot_w = sums[0] + sums[44]
 
-            s = nx * (px - ccx) + ny * (py - ccy) + nz * (pz - ccz)
-            use_pl = corr & (quality >= plane_q)
-            w_pl = jnp.where(use_pl, (kern * kern) / (kern + s * s) ** 2,
-                             0.0)
-            ax = py * nz - pz * ny
-            ay = pz * nx - px * nz
-            az = px * ny - py * nx
-
-            use_pt = corr & jnp.logical_not(use_pl)
-            w_pt = jnp.where(use_pt,
-                             (kern * kern) / (kern + d2min) ** 2, 0.0)
-            rx, ry, rz = px - qx, py - qy, pz - qz
-
-            # ALL moment sums as ONE stacked lane reduction (the
-            # pallas_gn._kernel formulation): ~50 separate jnp.sum calls
-            # here serialized into ~50 cross-lane reduce ops and dominated
-            # the iteration (~100 us measured); one [48, N] sum is a
-            # single vector pass.
-            mrows = [
-                w_pt,
-                w_pt * px, w_pt * py, w_pt * pz,
-                w_pt * px * px, w_pt * py * py, w_pt * pz * pz,
-                w_pt * px * py, w_pt * px * pz, w_pt * py * pz,
-                w_pt * (py * rz - pz * ry),
-                w_pt * (pz * rx - px * rz),
-                w_pt * (px * ry - py * rx),
-                w_pt * rx, w_pt * ry, w_pt * rz,
-            ]
-            rvec = (ax, ay, az, nx, ny, nz)
-            for u in range(6):
-                for v in range(u, 6):
-                    mrows.append(w_pl * rvec[u] * rvec[v])
-            for u in range(6):
-                mrows.append(w_pl * rvec[u] * s)
-            mrows.append(corr.astype(jnp.float32))
-            mrows.append(w_pl)
-            mrows += [jnp.zeros_like(w_pt)] * (48 - len(mrows))
-            st = jnp.stack(mrows)                            # [48, NS, 128]
-            sums = jnp.sum(jnp.sum(st, axis=2), axis=1,
-                           keepdims=True)                    # [48, 1]
-
-            sw = sums[0, 0]
-            spx, spy, spz = sums[1, 0], sums[2, 0], sums[3, 0]
-            pxx, pyy, pzz = sums[4, 0], sums[5, 0], sums[6, 0]
-            pxy, pxz, pyz = sums[7, 0], sums[8, 0], sums[9, 0]
-            cxr, cyr, czr = sums[10, 0], sums[11, 0], sums[12, 0]
-            srx, sry, srz = sums[13, 0], sums[14, 0], sums[15, 0]
-
-            # JtJ_pt = [trace*I - Spp, hat(Sp); -hat(Sp), Sw*I]
-            trc = pxx + pyy + pzz
-            zero = jnp.float32(0.0)
-            a = [[None] * 6 for _ in range(6)]
-            a[0][0] = trc - pxx
-            a[1][1] = trc - pyy
-            a[2][2] = trc - pzz
-            a[0][1] = -pxy
-            a[0][2] = -pxz
-            a[1][2] = -pyz
-            a[0][3] = zero
-            a[0][4] = -spz
-            a[0][5] = spy
-            a[1][3] = spz
-            a[1][4] = zero
-            a[1][5] = -spx
-            a[2][3] = -spy
-            a[2][4] = spx
-            a[2][5] = zero
-            a[3][3] = sw
-            a[4][4] = sw
-            a[5][5] = sw
-            a[3][4] = zero
-            a[3][5] = zero
-            a[4][5] = zero
-            b = [cxr, cyr, czr, srx, sry, srz]
-
-            # plane-branch row sums: row = [a | n], residual s
-            k = 16
-            for u in range(6):
-                for v in range(u, 6):
-                    a[u][v] = a[u][v] + sums[k, 0]
-                    k += 1
-            for u in range(6):
-                b[u] = b[u] + sums[k, 0]
-                k += 1
-            for u in range(6):
-                for v in range(u):
-                    a[u][v] = a[v][u]
-
-            n_corr = sums[43, 0]
-            tot_w = sw + sums[44, 0]
-
+            r, t = pose[:9], pose[9:]
             if use_prior:
-                rel_r, rel_t = _compose_scalars(
-                    (r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8]),
-                    (t[0], t[1], t[2]), gi_r, gi_t)
+                rel_r, rel_t = _compose_scalars(r, t, gi_r, gi_t)
                 xi = _log_pose_scalars(rel_r, rel_t)
                 for u in range(6):
                     wp = tot_w * (prw if u < 3 else ptw)
                     a[u][u] = a[u][u] + wp
                     b[u] = b[u] + wp * xi[u]
-
             for u in range(6):
                 a[u][u] = a[u][u] + jnp.float32(1e-8)
             dx = _solve_spd6_scalars(a, [-bb for bb in b])
 
             dr, dt = _exp_twist_scalars(dx)
-            new_r, new_t = _compose_scalars(
-                dr, dt,
-                (r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8]),
-                (t[0], t[1], t[2]))
-            dx2 = (dx[0] * dx[0] + dx[1] * dx[1] + dx[2] * dx[2]
-                   + dx[3] * dx[3] + dx[4] * dx[4] + dx[5] * dx[5])
-            return (new_r + new_t, dx2 < conv2, n_corr,
-                    iters + jnp.int32(1))
+            new_r, new_t = _compose_scalars(dr, dt, r, t)
+            dx2 = sum(d * d for d in dx)
+            return (tuple(new_r) + tuple(new_t), dx2 < conv2, n_corr,
+                    iters + 1)
 
         def cond(carry):
             return jnp.logical_and(jnp.logical_not(carry[1]),
                                    carry[3] < max_iterations)
 
-        pose0 = tuple(scal_ref[0, _S_POSE + k]
-                      for k in (0, 1, 2, 4, 5, 6, 8, 9, 10, 3, 7, 11))
-        init = (pose0, jnp.asarray(False), jnp.float32(0.0),
-                jnp.int32(0))
-        if loop_mode == "while":
-            pose, _, n_corr, iters = jax.lax.while_loop(cond, body, init)
-        else:
-            # fori + per-step cond skip: same early-exit economics (the
-            # untaken branch skips the vector body) using only the
-            # control-flow primitives the Pallas guide lists explicitly
-            def fbody(_, carry):
-                return jax.lax.cond(carry[1], lambda c: c, body, carry)
+        pose0 = tuple(scal_ref[_S_POSE + k] for k in _POSE_KEYS)
+        init = (pose0, jnp.bool_(False), jnp.float32(0.0), jnp.int32(0))
+        pose, _, n_corr, iters = jax.lax.while_loop(cond, body, init)
+        for k, sk in enumerate(_POSE_KEYS):
+            out_ref[_O_POSE + sk] = pose[k]
+        out_ref[_O_NCORR] = n_corr
+        out_ref[_O_ITERS] = iters.astype(jnp.float32)
 
-            pose, _, n_corr, iters = jax.lax.fori_loop(
-                0, max_iterations, fbody, init)
-        for k, sk in enumerate((0, 1, 2, 4, 5, 6, 8, 9, 10, 3, 7, 11)):
-            out_ref[0, sk] = pose[k]
-        out_ref[0, _O_NCORR] = n_corr
-        out_ref[0, _O_ITERS] = iters.astype(jnp.float32)
-
-        # model deviation dev = guess^-1 @ pose for the adaptive
-        # threshold (kiss AdaptiveThreshold inputs,
-        # reference src/ptudes/kiss.py:116-128)
-        gi_r2 = tuple(scal_ref[0, _S_POSE_INV + k]
-                      for k in (0, 1, 2, 4, 5, 6, 8, 9, 10))
-        gi_t2 = tuple(scal_ref[0, _S_POSE_INV + k] for k in (3, 7, 11))
-        dev_r, dev_t = _compose_scalars(
-            gi_r2, gi_t2, tuple(pose[:9]), tuple(pose[9:]))
-        out_ref[0, _O_DEVT] = jnp.sqrt(
+        # model deviation guess^-1 @ pose for the adaptive threshold
+        # (kiss AdaptiveThreshold inputs, reference src/ptudes/kiss.py:116-128)
+        dev_r, dev_t = _compose_scalars(gi_r, gi_t, pose[:9], pose[9:])
+        out_ref[_O_DEVT] = jnp.sqrt(
             dev_t[0] ** 2 + dev_t[1] ** 2 + dev_t[2] ** 2)
-        wlog = _log_pose_scalars(dev_r, (0.0, 0.0, 0.0))
-        out_ref[0, _O_DEVR] = jnp.sqrt(
-            wlog[0] ** 2 + wlog[1] ** 2 + wlog[2] ** 2)
+        w = _log_pose_scalars(dev_r, (0.0, 0.0, 0.0))
+        out_ref[_O_DEVR] = jnp.sqrt(w[0] ** 2 + w[1] ** 2 + w[2] ** 2)
 
     return kernel
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def kernel_inputs(source, source_mask, cand, loss: str, chunk: int):
+    """The kernel's operands from a gathered ``icp.CandidateSet``, padded
+    to the block shapes Triton needs: candidates to a power of two per
+    point (invalid padding), points to a whole number of chunks
+    (masked padding). Returns (rows [16, Np], cx, cy, cz, inf [Np, Cp])."""
+    n, c = cand.valid.shape
+    cp = _next_pow2(c)
+    np_ = -(-n // chunk) * chunk
+    if loss == "plane":
+        normal, centroid, quality = cand.normal, cand.centroid, cand.quality
+    else:
+        normal = jnp.zeros((n, 3), jnp.float32)
+        centroid = jnp.zeros((n, 3), jnp.float32)
+        quality = jnp.full((n,), -1.0, jnp.float32)   # never >= threshold
+    rows = jnp.concatenate([
+        source.astype(jnp.float32), normal, centroid, quality[:, None],
+        source_mask.astype(jnp.float32)[:, None],
+        jnp.zeros((n, _N_ROWS - 11), jnp.float32)], axis=1).T
+    rows = jnp.pad(rows, ((0, 0), (0, np_ - n)))
+    pad = ((0, np_ - n), (0, cp - c))
+    cx, cy, cz = (jnp.pad(cand.pts[:, :, i], pad) for i in range(3))
+    inf = jnp.pad(jnp.where(cand.valid, 0.0, jnp.float32(_BIG)), pad,
+                  constant_values=_BIG)
+    return rows, cx, cy, cz, inf
+
+
+def chunk_rows(n_candidates: int) -> int:
+    """Points per chunk: a [chunk, C] tile of TILE_ELEMS floats per
+    operand."""
+    return max(16, TILE_ELEMS // _next_pow2(n_candidates))
+
+
 @partial(jax.jit, inline=True, static_argnames=(
-    "plane_min_quality", "max_iterations",
-    "prior_rot_weight", "prior_trans_weight", "loop_mode", "interpret"))
-def icp_loop_pallas(
+    "plane_min_quality", "max_iterations", "prior_rot_weight",
+    "prior_trans_weight", "loss", "interpret"))
+def icp_loop(
     source: jax.Array,        # [N, 3] source points (body frame)
-    prepped,                  # pallas_gn.PreppedCandidates
+    source_mask: jax.Array,   # [N] bool
+    cand,                     # icp.CandidateSet gathered at the guess
     initial_guess: jax.Array,  # [4, 4]
     kernel: jax.Array,
     max_d2: jax.Array,
@@ -441,65 +433,44 @@ def icp_loop_pallas(
     max_iterations: int = 50,
     prior_rot_weight: float = 0.0,
     prior_trans_weight: float = 0.0,
-    loop_mode: str = "while",
+    loss: str = "plane",
     interpret: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array]:
+):
     """Run the whole frozen-candidate GN ICP in one kernel launch.
 
-    Returns (pose [4,4], n_corr, iters, dev_t, dev_r) — the pose triple
-    identical (to f32 roundoff) to the XLA while_loop around
-    ``pallas_gn.gn_prepped_pallas``, plus the model-deviation norms of
-    ``guess^-1 @ pose`` computed in the kernel epilogue.
+    Returns (pose [4,4], n_corr, iters, dev_t, dev_r): the pose triple of
+    the XLA while_loop (to f32 summation order), plus the model-deviation
+    norms of ``guess^-1 @ pose`` computed in the kernel epilogue.
     """
     from ..geom import se3
 
-    n = source.shape[0]
-    c = prepped.cx.shape[0]
-    assert n % 128 == 0, f"source capacity {n} must be lane-aligned"
-    ns = n // 128
-
-    src = jnp.concatenate(
-        [source.astype(jnp.float32),
-         jnp.zeros((n, 5), jnp.float32)], axis=1).T            # [8, N]
+    chunk = chunk_rows(cand.valid.shape[1])
+    rows, cx, cy, cz, inf = kernel_inputs(source, source_mask, cand, loss,
+                                          chunk)
     guess = initial_guess.astype(jnp.float32)
     ginv = se3.inv(guess)
-    scal = jnp.zeros((1, 32), jnp.float32)
-    scal = scal.at[0, _S_KERN].set(kernel.astype(jnp.float32))
-    scal = scal.at[0, _S_MAXD2].set(max_d2.astype(jnp.float32))
-    scal = scal.at[0, _S_PLQ].set(plane_min_quality)
     conv = jnp.asarray(convergence, jnp.float32)
-    scal = scal.at[0, _S_CONV2].set(conv * conv)
-    scal = scal.at[0, _S_PRW].set(prior_rot_weight)
-    scal = scal.at[0, _S_PTW].set(prior_trans_weight)
-    scal = scal.at[0, _S_POSE:_S_POSE + 12].set(guess[:3].reshape(12))
-    scal = scal.at[0, _S_POSE_INV:_S_POSE_INV + 12].set(
-        ginv[:3].reshape(12))
+    scal = jnp.concatenate([
+        jnp.stack([kernel.astype(jnp.float32), max_d2.astype(jnp.float32),
+                   jnp.float32(plane_min_quality), conv * conv,
+                   jnp.float32(prior_rot_weight),
+                   jnp.float32(prior_trans_weight),
+                   jnp.float32(0.0), jnp.float32(0.0)]),
+        guess[:3].reshape(12), ginv[:3].reshape(12)])
 
-    assert loop_mode in ("while", "fori_cond")
     kern_fn = _make_loop_kernel(
         max_iterations,
         use_prior=(prior_rot_weight > 0.0 or prior_trans_weight > 0.0),
-        loop_mode=loop_mode)
-    # fold points into full (NS, 128) vreg tiles (see _make_loop_kernel);
-    # (*, N) -> (*, NS, 128) is layout-compatible (row-major)
+        n_chunks=rows.shape[1] // chunk, chunk=chunk)
     out = pl.pallas_call(
         kern_fn,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # src [8, NS, 128]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # feat [8, NS, 128]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # cx [C, NS, 128]
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # cy
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # cz
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # inf
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # scal (1, 32)
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
-        out_shape=jax.ShapeDtypeStruct((1, 16), jnp.float32),
+        out_shape=jax.ShapeDtypeStruct((16,), jnp.float32),
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=NUM_WARPS,
+                                            num_stages=NUM_STAGES),
         interpret=interpret,
-    )(src.reshape(8, ns, 128), prepped.feat.reshape(8, ns, 128),
-      prepped.cx.reshape(c, ns, 128), prepped.cy.reshape(c, ns, 128),
-      prepped.cz.reshape(c, ns, 128), prepped.inf.reshape(c, ns, 128),
-      scal)[0]
+        name="icp_gn_loop",
+    )(rows, cx, cy, cz, inf, scal)
 
     pose = jnp.concatenate(
         [out[:12].reshape(3, 4),

@@ -4,7 +4,7 @@ Point-to-plane support for the ICP (``icp.register_frame`` with
 ``loss="plane"``): the normal of each correspondence's voxel is computed
 on the fly from the voxel's stored point list (already gathered for the
 NN search), via a closed-form symmetric 3x3 eigen-decomposition — pure
-vectorized VPU math, no extra map state.
+vectorized elementwise math, no extra map state.
 
 Why this exists: the reference's kiss-icp uses point-to-point, whose
 fixed point on flat, ring-sampled lidar data is set by the sampling
@@ -32,8 +32,8 @@ def smallest_eigvec_sym3(a: jax.Array) -> tuple[jax.Array, jax.Array]:
     """
     eps = 1e-12
     # explicit symmetric-entry arithmetic: jnp.trace(b @ b) and
-    # jnp.linalg.det lower to batched matmul / LU custom calls (~0.25
-    # ms/scan at 8k fits); the closed forms are pure elementwise VPU work
+    # jnp.linalg.det lower to batched matmul / LU custom calls; the
+    # closed forms are pure elementwise work
     axx, ayy, azz = a[..., 0, 0], a[..., 1, 1], a[..., 2, 2]
     axy, axz, ayz = a[..., 0, 1], a[..., 0, 2], a[..., 1, 2]
     m = (axx + ayy + azz) / 3.0

@@ -1,6 +1,6 @@
 """Static-shape voxel downsampling.
 
-TPU-native equivalent of kiss-icp's C++ ``voxel_down_sample`` (reference
+JAX equivalent of kiss-icp's C++ ``voxel_down_sample`` (reference
 call site ``src/ptudes/kiss.py:96`` via ``voxelize``): keep the FIRST point
 falling into each voxel (kiss semantics — insertion order), with all shapes
 static.
@@ -78,9 +78,8 @@ def window_prededup_mask(
     range-image pixels are millimeters-to-centimeters apart in 3D, so this
     window removes the bulk (~95%) of sub-voxel duplicates; the exact
     scatter-table dedup then runs on the COMPACTED survivors at ~1/4 the
-    width. TPU scatters serialize per update (~7.5 ns/row measured), so
-    moving 100k rows of dedup work from scatter to VPU compares is the
-    single biggest voxelize win. Survivors are a superset of the exact
+    width: ~100k rows of dedup work move from scatter to elementwise
+    compares. Survivors are a superset of the exact
     first-in-voxel set — running :func:`first_in_voxel_mask` after this
     yields the identical final point set (modulo compaction capacity).
 
@@ -143,11 +142,9 @@ def _perm_sort(keys: tuple) -> tuple:
     Returns ``(*sorted_keys, perm)``. Payload columns are then fetched with
     one row gather by ``perm`` (usually sliced to the output capacity
     first). Sorting the payload columns along instead is what the original
-    formulation did — but XLA:TPU sort compile time scales ~7 s PER OPERAND
-    at >=32k width (measured, tools/profile_compile_sort*.py: 4-operand
-    stable 32k = 21.6 s, 7-operand = 42.5 s, while (key, iota) + row gather
-    = 7.8 s compile and is RUNTIME-FASTER: 54 us vs 63 us at 32k), and the
-    wide sorts were the dominant cost of the ~70 s cold pipeline compile.
+    formulation did, but on an earlier backend multi-operand sort compile
+    time grew with every operand at >=32k width and dominated the cold
+    pipeline compile (on the GPU: not measured).
     """
     n = keys[0].shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
@@ -162,11 +159,8 @@ def compact(
     """Pack masked points to the front of a fixed-size [capacity, 3] buffer.
 
     Implemented as ONE stable sort by the inverted mask: keepers bubble to
-    the front in original order (stable), then slice to capacity. TPU
-    scatters serialize per update row (~8 ns each), so the obvious
-    cumsum+scatter formulation costs ~640 us at 131k points; the bitonic
-    sort network the TPU backend emits is ~5x cheaper for the same job.
-    Points beyond ``capacity`` are dropped — or, with
+    the front in original order (stable), then slice to capacity, instead
+    of the obvious cumsum+scatter formulation. Points beyond ``capacity`` are dropped — or, with
     ``decimate_overflow=True``, the overflow is spread EVENLY over the
     keepers in scan order (keep position p iff ``(p*capacity) % n_keep <
     capacity``: exactly ``capacity`` evenly-spaced survivors) instead of
@@ -178,7 +172,7 @@ def compact(
     elementwise mask fold before the same single sort.
     """
     if decimate_overflow:
-        # i32 product bound (x64 stays off on TPU)
+        # i32 product bound (x64 stays off)
         assert pts.shape[0] * capacity < 2**31, (
             "decimate_overflow: N*capacity must fit int32")
         pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
@@ -228,8 +222,8 @@ def first_in_voxel_sorted(
     survivors the table-based :func:`first_in_voxel_mask` selects. Returns
     the REORDERED points plus their keep mask, sliced to ``capacity`` —
     callers that don't care about point order (map insert, a following
-    compact) use this to replace a scatter-min + gather round trip
-    (~470 us at 32k width) with one ~100 us sort.
+    compact) use this to replace a scatter-min + gather round trip with
+    one sort.
 
     Hash aliasing between distinct voxels drops the losing voxel's points
     like the table variant, but at 31-bit hash width (~1e-4 points/scan)

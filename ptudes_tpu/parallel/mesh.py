@@ -1,18 +1,18 @@
 """Device mesh helpers for the LIO workload.
 
 The reference has no parallelism at all (single-threaded CPU python,
-SURVEY.md section 2c); on TPU the natural axes are:
+SURVEY.md section 2c); the natural axes are:
 
 * ``bag``   — data parallelism over independent sequences (multi-bag
   replay, hyperparameter sweeps). Embarrassingly parallel: no collectives.
 * ``pt``    — intra-scan point sharding: the ICP source is split across
   devices, each computes partial GN normal equations against a replicated
-  map, and a psum over ICI reduces the 6x6+6 system (the one genuinely
+  map, and a psum reduces the 6x6+6 system (the one genuinely
   communicating dimension of this workload).
 
 Meshes are standard ``jax.sharding.Mesh`` objects so everything composes
-with pjit/shard_map and scales from the 8-device CPU-emulated test mesh to
-real slices unchanged.
+with jit/shard_map and scale from the 8-device CPU-emulated test mesh to
+real devices unchanged.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Point-cloud accumulation and export.
 
 The reference's 3D viewers are OpenGL (ouster PointViz) — out of scope for
-TPU compute (SURVEY.md section 2b). This module provides the compute-side
+accelerator compute (SURVEY.md section 2b). This module provides the compute-side
 equivalents: a growable accumulation cloud (reference ``PointCloud``,
 ``src/ptudes/viz_utils.py:20-132``; ``ScansAccumulator`` map building) and
 PLY export so any external viewer (CloudCompare, MeshLab, Open3D) can

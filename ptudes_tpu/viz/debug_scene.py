@@ -1,11 +1,11 @@
-"""EKF debug scene export — the TPU-native replacement for the reference's
+"""EKF debug scene export — the replacement for the reference's
 3D debug viewer ``ekf_viz`` (``src/ptudes/ins/viz_utils.py:317-626``).
 
 The reference renders, per EKF update knot: the scan frame, the
 downsampled source, the NN correspondence pairs, the local map, the pose
 axes, and a covariance visualization built by sampling 2000 points from
 the position marginal and 100 axes from the attitude marginal
-(``:506-523``), navigable by keyboard. OpenGL is out of TPU scope, so this
+(``:506-523``), navigable by keyboard. OpenGL is out of scope, so this
 module exports the same per-update scene as PLY clouds + a JSON index
 keyed by update knot — loadable in CloudCompare/MeshLab/Open3D or any
 notebook, with all the same content.

@@ -51,7 +51,7 @@ class Flyby:
     """Time-driven camera program over a finished trajectory + map bbox.
 
     Unlike the reference (which builds the map live while BUILDING), the
-    TPU pipeline registers the whole sequence first; BUILDING then replays
+    device pipeline registers the whole sequence first; BUILDING then replays
     scan poses at ``build_rate`` scans/sec for the same visual effect.
     """
     traj: list                      # [(ts, pose4x4), ...]

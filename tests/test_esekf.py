@@ -1,6 +1,9 @@
 """ES-EKF tests: numpy-f64 oracle for predict/update + sim-as-oracle
 convergence (the reference's de-facto correctness test, SURVEY.md sec 4)."""
+from functools import partial
+
 import numpy as np
+import pytest
 from scipy.spatial.transform import Rotation as R
 
 import jax
@@ -13,6 +16,15 @@ from ptudes_tpu.models.esekf import Imu
 
 CFG = EkfConfig()
 CFG_REF = EkfConfig(joseph_form=False)  # exact reference update form
+
+
+@pytest.fixture
+def interpret_kernels(monkeypatch):
+    """Run the EKF predict kernel in the Pallas interpreter (no card
+    here): the predict path looks the kernel up at call time."""
+    from ptudes_tpu.ops import pallas_ekf
+    monkeypatch.setattr(pallas_ekf, "predict_block",
+                        partial(pallas_ekf.predict_block, interpret=True))
 
 
 class NumpyEkf:
@@ -239,8 +251,8 @@ class TestBatched:
         assert np.allclose(s_a.cov, s_u.cov, rtol=1e-3, atol=2e-3), \
             np.abs(np.asarray(s_a.cov) - np.asarray(s_u.cov)).max()
 
-    def test_pallas_kernel_matches_unroll(self):
-        """The one-launch Pallas predict block (predict_batch='pallas',
+    def test_pallas_kernel_matches_unroll(self, interpret_kernels):
+        """The one-launch predict kernel (predict_batch='triton',
         interpret mode here) matches the unrolled chain near-exactly —
         the in-kernel math IS the sequential chain (matrix-form attitude
         + per-step symmetrized covariance), so tolerances are f32
@@ -248,7 +260,7 @@ class TestBatched:
         import dataclasses
         _, noisy = sim.sim_imu_arrays(7, 16)
         cfg_u = dataclasses.replace(CFG, predict_batch="unroll")
-        cfg_p = dataclasses.replace(CFG, predict_batch="pallas")
+        cfg_p = dataclasses.replace(CFG, predict_batch="triton")
         s0 = esekf.init_state(CFG)
         valid = jnp.arange(16) < 13
         s_u = esekf.process_imu_batch(s0, noisy, valid, cfg=cfg_u)
@@ -260,7 +272,7 @@ class TestBatched:
         assert bool(s_p.initialized) == bool(s_u.initialized)
         assert np.allclose(s_p.cov, s_u.cov, rtol=1e-5, atol=1e-5), \
             np.abs(np.asarray(s_p.cov) - np.asarray(s_u.cov)).max()
-        # logging-invariance holds for the pallas form too: the carried
+        # logging-invariance holds for the kernel form too: the carried
         # state of log=True is the kernel-form state
         s_pl, _ = esekf.process_imu_batch(s0, noisy, valid, cfg=cfg_p,
                                           log=True)
@@ -268,13 +280,13 @@ class TestBatched:
             np.testing.assert_array_equal(
                 np.asarray(getattr(s_p, f)), np.asarray(getattr(s_pl, f)))
 
-    def test_pallas_kernel_uninitialized_latch(self):
+    def test_pallas_kernel_uninitialized_latch(self, interpret_kernels):
         """First valid sample of an uninitialized filter only latches the
         timestamp (same contract as process_imu / the assoc form)."""
         import dataclasses
         _, noisy = sim.sim_imu_arrays(3, 8)
         cfg_u = dataclasses.replace(CFG, predict_batch="unroll")
-        cfg_p = dataclasses.replace(CFG, predict_batch="pallas")
+        cfg_p = dataclasses.replace(CFG, predict_batch="triton")
         s0 = esekf.init_state(CFG)
         valid = jnp.arange(8) < 5
         s_u = esekf.process_imu_batch(s0, noisy, valid, cfg=cfg_u)
@@ -334,52 +346,10 @@ def test_stale_imu_sample_is_noop():
     assert float(stale.imu_ts) == float(s.imu_ts)  # ts stays monotonic
 
 
-def test_update_pose_pallas_matches_xla():
-    """The one-launch pose-update kernel (ops.pallas_ekf.update_pose_pallas)
-    must match process_pose to f32 roundoff, Joseph and simple forms."""
-    from ptudes_tpu.ops.pallas_ekf import update_pose_pallas
-
-    rng = np.random.default_rng(5)
-    for joseph in (True, False):
-        cfg = EkfConfig(joseph_form=joseph)
-        s = esekf.init_state(cfg)
-        # advance to a generic state
-        ts = 0.0
-        for i in range(20):
-            ts += 0.01
-            s = esekf.process_imu(
-                s, Imu(lacc=jnp.asarray(rng.normal(0, 1, 3) +
-                                        [0, 0, 9.78], jnp.float32),
-                       avel=jnp.asarray(rng.normal(0, 0.2, 3),
-                                        jnp.float32),
-                       ts=jnp.asarray(ts, jnp.float32)), cfg=cfg)
-        pose = np.eye(4, dtype=np.float32)
-        pose[:3, :3] = esekf.so3.quat_to_mat(
-            esekf.so3.rotvec_to_quat(jnp.asarray([0.02, -0.01, 0.03])))
-        pose[:3, 3] = [0.1, -0.2, 0.05]
-        mc = esekf.default_meas_cov(cfg)
-        ref = esekf.process_pose(s, jnp.asarray(pose), cfg=cfg)
-        got = update_pose_pallas(s, jnp.asarray(pose), mc,
-                                 joseph=joseph, interpret=True)
-        np.testing.assert_allclose(np.asarray(got.pos),
-                                   np.asarray(ref.pos), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got.vel),
-                                   np.asarray(ref.vel), atol=1e-5)
-        q0, q1 = np.asarray(got.quat), np.asarray(ref.quat)
-        assert min(np.abs(q0 - q1).max(), np.abs(q0 + q1).max()) < 1e-5
-        np.testing.assert_allclose(np.asarray(got.bias_gyr),
-                                   np.asarray(ref.bias_gyr), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got.grav),
-                                   np.asarray(ref.grav), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got.cov),
-                                   np.asarray(ref.cov),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_predict_twist_forms_agree():
+def test_predict_twist_forms_agree(interpret_kernels):
     """want_twist must return log(T_in^-1 @ T_out) on every predict
-    form (the pallas kernel computes it in its epilogue; the others in
-    XLA) — the LIO deskew consumes it."""
+    form (the kernel computes it in its epilogue; the others in XLA) —
+    the LIO deskew consumes it."""
     from ptudes_tpu.geom import se3
 
     rng = np.random.default_rng(9)
@@ -391,7 +361,7 @@ def test_predict_twist_forms_agree():
         ts=jnp.asarray(np.arange(1, k + 1) * 0.01, jnp.float32))
     valid = jnp.asarray(np.arange(k) < 10)
     twists = {}
-    for form in ("assoc", "unroll", "pallas"):
+    for form in ("assoc", "unroll", "triton"):
         cfg = EkfConfig(predict_batch=form)
         s = esekf.init_state(cfg)
         st, tw = esekf.process_imu_batch(s, imus, valid, cfg=cfg,
@@ -401,5 +371,5 @@ def test_predict_twist_forms_agree():
         np.testing.assert_allclose(np.asarray(tw), np.asarray(ref),
                                    atol=2e-5)
         twists[form] = np.asarray(tw)
-    np.testing.assert_allclose(twists["assoc"], twists["pallas"],
+    np.testing.assert_allclose(twists["assoc"], twists["triton"],
                                atol=2e-5)

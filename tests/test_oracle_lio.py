@@ -1,7 +1,7 @@
 """Guards for the CPU baseline (tools/oracle_kiss.py) that bench.py's
 relative quality gate depends on.
 
-The baseline must keep implementing the SAME policy as the TPU pipeline
+The baseline must keep implementing the SAME policy as the device pipeline
 (VERDICT r4 #4 made it policy-identical); these tests pin:
   * the tool's f64 ES-EKF against the test-suite oracle the JAX filter
     is itself verified against (they implement the same reference math,

@@ -119,9 +119,7 @@ def test_cli_stream_export(tmp_path):
     """`ptudes-tpu viz --stream-dir` exports the player from a pcap."""
     import sys
 
-    from click.testing import CliRunner
-
-    from ptudes_tpu.cli.main import ptudes_cli
+    from ptudes_tpu.cli.main import main
     from ptudes_tpu.io import pcap as pcap_io
 
     from test_io import synth_frames
@@ -138,10 +136,8 @@ def test_cli_stream_export(tmp_path):
     with open(mpath, "w") as f:
         f.write(info_to_json(info))
     d = str(tmp_path / "stream")
-    r = CliRunner().invoke(
-        ptudes_cli, ["viz", path, "-m", mpath, "--stream-dir", d,
-                     "--rate", "0"])
-    assert r.exit_code == 0, r.output
+    assert main(["viz", path, "-m", mpath, "--stream-dir", d,
+                 "--rate", "0"]) == 0
     assert os.path.isfile(os.path.join(d, "viewer_stream.html"))
     assert os.path.isfile(os.path.join(d, "ranges.bin"))
     # -r seeds the player's initial rate (0 = start paused, the
@@ -151,10 +147,8 @@ def test_cli_stream_export(tmp_path):
 
     # --max-scans bounds the export for huge recordings
     d2 = str(tmp_path / "stream2")
-    r = CliRunner().invoke(
-        ptudes_cli, ["viz", path, "-m", mpath, "--stream-dir", d2,
-                     "--max-scans", "1"])
-    assert r.exit_code == 0, r.output
+    assert main(["viz", path, "-m", mpath, "--stream-dir", d2,
+                 "--max-scans", "1"]) == 0
     meta2 = json.load(open(os.path.join(d2, "stream.json")))
     assert meta2["n"] == 1 and len(meta2["scan_ts"]) == 1
 

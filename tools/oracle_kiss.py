@@ -1,6 +1,6 @@
 """f64 numpy oracle of the kiss-icp odometry algorithm (no JAX).
 
-Used to A/B the TPU pipeline and as the honest CPU baseline for bench.py:
+Used to A/B the device pipeline and as the honest CPU baseline for bench.py:
 same voxelization semantics (first point per voxel), same adaptive
 threshold, same robust GN. The ICP inner loop's exact NN runs over a
 fast-build per-registration KD-tree (``scipy.spatial.cKDTree``, built
@@ -19,7 +19,7 @@ loosely-coupled pipeline (reference ``ptudes ekf-bench ouster
 --use-imu-prediction``, ``src/ptudes/cli/ekf_bench.py:493-563``): a
 minimal f64 ES-EKF (the reference math, ``src/ptudes/ins/es_ekf.py:
 191-327``) supplies the deskew twist and ICP initial guess, and fuses
-the ICP pose back — the same per-scan policy the TPU pipeline runs, so
+the ICP pose back — the same per-scan policy the device pipeline runs, so
 bench.py's relative quality gate compares like with like.
 """
 import numpy as np
@@ -197,7 +197,7 @@ class OracleKiss:
         # loss="plane": per-point patch plane fit at the guess pose +
         # point-to-plane rows with point-to-point fallback, and the
         # guess-anchored motion prior — the SAME registration objective
-        # the TPU pipeline runs (ops/icp.py gn_from_candidates), so the
+        # the device pipeline runs (ops/icp.py gn_from_candidates), so the
         # baseline measures the same algorithm, not kiss's point-to-point
         self.loss = loss
         self.plane_min_quality = plane_min_quality
@@ -219,7 +219,7 @@ class OracleKiss:
     def register(self, pts, guess=None, ts01=None, deskew_twist=None):
         if ts01 is not None and deskew_twist is not None:
             # externally supplied sweep motion (OracleLio passes the
-            # EKF's IMU-integrated twist — the TPU pipeline's
+            # EKF's IMU-integrated twist — the device pipeline's
             # deskew_mode="ekf" policy, models/lio.py)
             pts = deskew_by_twist(pts, np.asarray(ts01) - 0.5,
                                   np.asarray(deskew_twist, np.float64))
@@ -257,7 +257,7 @@ class OracleKiss:
             normal = centroid = quality = None
             if self.loss == "plane":
                 # per-point patch plane fit at the GUESS pose, fixed for
-                # the whole registration — the TPU pipeline's gather-once
+                # the whole registration — the device pipeline's gather-once
                 # policy (ops/icp.py CandidateSet / prep_with_plane)
                 src_g = source @ guess[:3, :3].T + guess[:3, 3]
                 k = min(16, len(mp))
@@ -436,7 +436,7 @@ class OracleLio:
     """Policy-identical f64 CPU baseline of the flagship LIO pipeline:
     per scan, EKF predict over the scan's IMU block -> EKF-twist deskew
     -> ICP with the EKF pose as initial guess -> EKF update with the ICP
-    pose — the exact loosely-coupled policy the TPU ``models/lio.py``
+    pose — the exact loosely-coupled policy the device ``models/lio.py``
     scan_step runs (``guess="ekf"``, ``deskew_mode="ekf"``), so the
     bench's relative quality gate compares the same algorithm, not a
     const-velocity variant of it."""
